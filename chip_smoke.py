@@ -5,8 +5,9 @@
 
 Phases, each failing loudly (nothing here catches an error):
 
-0. the card's name and power limit (nvidia-smi), then the build of the
-   hand-written CUDA kernel K1 (csrc/exact_step.cu) from this checkout;
+0. the card's name and power limit (nvidia-smi), then the builds of the
+   hand-written CUDA kernels K1 (csrc/exact_step.cu) and K2
+   (csrc/qp_admm.cu) from this checkout, one nvcc each, started together;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
    (b) corner-grinding games (B=1024, pre-ground 26 steps by the kernel),
@@ -15,29 +16,58 @@ Phases, each failing loudly (nothing here catches an error):
        in the kernel, through both the compacted and the overflow path;
    (d) stochastic mode with identical noise planes, and noise=0 bitwise
        equal to the deterministic kernel;
-2. the main path: bench.py's workload (B=8192 games, 400 control steps,
-   per-game U(-8, 8) schedules held 10 steps, winning_score=4, two-phase
-   with compact_frac=16) through ``monte_carlo``, timed after a warm-up,
-   with K1's launch counts of that run; its first 64 games are held
-   against the same sweep run by the plain version on the CPU;
+2. slice 1's main path: bench.py's workload (B=8192 games, 400 control
+   steps, per-game U(-8, 8) schedules held 10 steps, winning_score=4,
+   two-phase with compact_frac=16) through ``monte_carlo``, timed after a
+   warm-up, with K1's launch counts of that run; its first 64 games are
+   held against the same sweep run by the plain version on the CPU;
 3. K1's time per control step at the main path's shapes beside its bound
-   and the plain version's time, as one JSON line ``{"kernels": [...]}``.
+   and the plain version's time;
+4. slice 2's main path: the classical_cbf and classical_nocbf matchups
+   (classical vs classical, with and without the CBF filter; 512 games x
+   400 control steps, randomized puck starts) through ``monte_carlo``,
+   each timed after a warm-up with the K1 and K2 launch counts of its run
+   (K2: 3 per step with CBF, 2 without); CBF must cut the mean damage.
+   From the states of steps 100 and 200 of the CBF run, the policy on K2
+   is held against the policy on K2's plain version on the card, and 16
+   games' policy output on the card against the CPU;
+5. K2 against its plain version on the card: the skills QPs (n=30, m=60,
+   40960 problems) and the CBF QPs (8, 20) of a mid-game matchup state,
+   random DMPC-shaped QPs (40, 140) with row scaling and equality rows
+   (and, reported only, how each f32 route's flags agree with the plain
+   version in f64 at 150 iterations), and shared operands bitwise equal to
+   their broadcast; K2's time per
+   launch at both matchup shapes beside its bound and the plain time.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits 1 before printing any result.
+The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
+K2 at the skills shape, K2 at the CBF shape); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+1 before printing any result.
 """
 
+import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 B_MAIN, N_STEPS, HOLD = 8192, 400, 10
+B_CL = 512                          # games of each closed-loop matchup
+SNAP_STEPS = (100, 200)             # states the policy checks start from
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12              # f32 outside the tensor cores
+# a candidate skill whose best two final-time costs lie this close may
+# rightly pick another final time under f32 roundoff
+NEAR_TIE = 1e-3
+# K2 against its plain version, and the policy's trajectories and
+# controls (K2's solutions, clipped to the input box) on K2 against the
+# policy on the plain version
+X_ATOL, X_RTOL = 2e-3, 1e-2
 
 
 def check(cond, msg):
@@ -64,6 +94,363 @@ def maxdiff(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def k2_flops(n, m, n_seg, seg_iters):
+    """The f32 operations one K2 solve needs: per segment the lower
+    triangle of K = H + sigma I + A' diag(rho) A, the Cholesky factor,
+    its inverse and Kinv = C'C (n^3/3 each), the iterations (two products
+    with A, one with Kinv, the vector updates) and the residuals."""
+    form = m * n * (n + 1) + m * n
+    it = 4 * m * n + 2 * n * n + 12 * m + 3 * n
+    res = 2 * m * n + 2 * n * n + 5 * m + 5 * n
+    return n_seg * (form + n ** 3 + seg_iters * it + res)
+
+
+def k2_bound_ms(G, P, n, m, n_seg, seg_iters):
+    """(bound ms, 'bytes' or 'operations') of one K2 launch: each input
+    read once (G shared H and A, per-problem g, l, u), each output written
+    once (x and 3 flags), against the f32 rate."""
+    nbytes = 4 * (G * (n * n + m * n) + P * (n + 2 * m) + P * (n + 3))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = P * k2_flops(n, m, n_seg, seg_iters) / H100_F32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+@contextlib.contextmanager
+def plain_qp():
+    """Route every ``solve_qp_lanes`` call of the controllers to K2's plain
+    version (``ops/qp.py::solve_qp``) on the tensors' own device."""
+    from robogame_tpu_torch.ops import qp, qp_lanes
+    kernel_route = qp_lanes.solve_qp_lanes
+
+    def plain(H, g, A, l, u, iters=50, n_seg=4, rho=1.0, sigma=1e-6,
+              alpha=1.6, tol=1e-3, scale_rows=False, group=1):
+        return qp.solve_qp(H.repeat_interleave(group, 0), g,
+                           A.repeat_interleave(group, 0), l, u, iters=iters,
+                           rho=rho, sigma=sigma, alpha=alpha, tol=tol,
+                           scale_rows=scale_rows, n_seg=n_seg)
+
+    qp_lanes.solve_qp_lanes = plain
+    try:
+        yield
+    finally:
+        qp_lanes.solve_qp_lanes = kernel_route
+
+
+def random_qps(dev, P, n, m, n_eq, seed=40):
+    """P random strictly convex QPs (the generator of
+    tests/test_qp_pallas.py) with ``n_eq`` equality rows, float32 on
+    ``dev``."""
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(P, n, n))
+    H = np.einsum("bij,bkj->bik", Q, Q) / n + np.eye(n) / 10.0
+    lo = rng.uniform(-2.0, 0.0, (P, m))
+    hi = rng.uniform(0.1, 2.0, (P, m))
+    lo[:, :n_eq] = hi[:, :n_eq] = rng.uniform(-0.5, 0.5, (P, n_eq))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        H, rng.normal(size=(P, n)), rng.normal(size=(P, m, n)), lo, hi)]
+
+
+def _objective(H, g, x, group):
+    """1/2 x'Hx + g'x per problem, H shared by groups of ``group``."""
+    G, n = H.shape[0], g.shape[1]
+    xg = x.reshape(G, group, n)
+    return 0.5 * torch.einsum("gpi,gij,gpj->gp", xg, H, xg).reshape(-1) + \
+        (g * x).sum(-1)
+
+
+def k2_vs_plain(tag, H, g, A, l, u, group=1, **kw):
+    """K2 and its plain version on the same problems.  Held: flags agree on
+    >= 99% of the problems; where both converged, the objectives agree
+    within 2e-2 (1 + |f|) (what the flags guarantee against an exact
+    solver, tests/test_qp_fuzz.py) and x within X_ATOL/X_RTOL on all but
+    0.1% of the problems.  Those few lie in the nearly flat directions of
+    an ill-conditioned H (the skills' H is rank 4 plus 2e-3 I), where f32
+    roundoff moves a stopped ADMM iterate along the valley.  Returns (max
+    |dx| where both converged, K2's solution)."""
+    from robogame_tpu_torch.ops import qp, qp_lanes
+    k = qp_lanes.solve_qp_lanes(H, g, A, l, u, group=group, **kw)
+    p = qp.solve_qp(H.repeat_interleave(group, 0), g,
+                    A.repeat_interleave(group, 0), l, u, **kw)
+    torch.cuda.synchronize()
+    agree = float((k.converged == p.converged).float().mean())
+    both = k.converged & p.converged
+    nb = int(both.sum())
+    dx = (k.x - p.x).abs()
+    err = float(dx[both].max()) if nb else 0.0
+    off = both & (dx > X_ATOL + X_RTOL * p.x.abs()).any(-1)
+    fk, fp = (_objective(H.double(), g.double(), s.x.double(), group)
+              for s in (k, p))
+    df = ((fk - fp).abs() / (1 + fp.abs()))[both]
+    dfmax = float(df.max()) if nb else 0.0
+    print(f"phase5 {tag}: P={g.shape[0]} n={g.shape[1]} m={l.shape[1]}: "
+          f"flags agree {agree:.5f}, both converged {nb}; there max|dx| "
+          f"{err:.3g}, {int(off.sum())} problems outside "
+          f"{X_ATOL}/{X_RTOL}, max |df|/(1+|f|) {dfmax:.3g}", flush=True)
+    check(agree >= 0.99, f"{tag}: K2 and plain flags agree on {agree}")
+    check(dfmax <= 2e-2, f"{tag}: K2's objective differs ({dfmax})")
+    check(int(off.sum()) <= nb // 1000, f"{tag}: K2 disagrees with its "
+          f"plain version ({err})")
+    return err, k
+
+
+def _leaves(carry):
+    return [a for ts in carry for a in (*ts.goalie, *ts.player,
+                                        ts.curr_play)]
+
+
+def unsettled_games(rt, params, carry, states, cbf, route):
+    """(B,) games whose plan may rightly differ between K2 on the card and
+    ``route`` ('plain': the plain version on the card, 'cpu': on the CPU):
+    a candidate skill with its best two final-time costs within NEAR_TIE on
+    either side, or a QP flag that differs between the sides (the knife
+    edge of the convergence test), in either team's skills or the CBF."""
+    from robogame_tpu_torch.agents import classical as cl
+    from robogame_tpu_torch.control import cbf as cbf_mod
+    from robogame_tpu_torch.control import trajopt as tr
+
+    def other(fn, *args):
+        if route == "cpu":
+            return fn(*(a.cpu() for a in args))
+        with plain_qp():
+            return fn(*args)
+
+    x = states.x
+    B = x.shape[0]
+    bad = torch.zeros(B, dtype=torch.bool)
+    u = []
+    for field, ts in zip((-1, 1), carry):
+        c4 = [a.reshape(B * 5, 2) for a in cl._team_candidates(
+            x, field, params, rt.StrategyParams())[:4]]
+        _, ck, vk, _ = tr.candidate_costs(*c4, params)
+        _, cp, vp, _ = other(lambda *a: tr.candidate_costs(*a, params), *c4)
+        for c in (ck.cpu(), cp.cpu()):
+            srt = c.sort(dim=0).values
+            bad |= ((srt[1] - srt[0]) <= NEAR_TIE).reshape(B, 5).any(1)
+        bad |= (vk.cpu() != vp.cpu()).any(0).reshape(B, 5).any(1)
+        u.append(rt.team_policy_batch(ts, x, field, params,
+                                      rt.StrategyParams())[1])
+    if cbf is not None:
+        args = (torch.cat(u, 1), x[:, :4, 0:2], x[:, :4, 2:4])
+        fk = cbf_mod.safe_control_batch(*args, params, cbf).converged
+        fp = other(lambda *a: cbf_mod.safe_control_batch(
+            *a, params, cbf).converged, *args)
+        bad |= fk.cpu() != fp.cpu()
+    return bad
+
+
+def hold_policy(rt, tag, policy, params, carry, states, cbf, route):
+    """The matchup policy on K2 against the same policy on ``route`` from
+    one state.  Plays are equal in every game; outside the unsettled games
+    the playback indices and lengths are equal, and the trajectories and
+    controls (K2's solutions, clipped) are within X_ATOL/X_RTOL in all but
+    1% of the games (the flat-valley outliers of ``k2_vs_plain``)."""
+    from robogame_tpu_torch.agents import classical as cl
+    (ka, kb), uk = policy(carry, states)
+    if route == "cpu":
+        c_carry = tuple(cl._map(lambda a: a.cpu(), ts) for ts in carry)
+        c_states = type(states)(*(a.cpu() for a in states))
+        (pa, pb), up = policy(c_carry, c_states)
+    else:
+        with plain_qp():
+            (pa, pb), up = policy(carry, states)
+    bad = unsettled_games(rt, params, carry, states, cbf, route)
+    ok = ~bad
+    B = states.x.shape[0]
+    err = 0.0
+    off = torch.zeros(B, dtype=torch.bool)
+    for a, b in zip(_leaves((ka, kb)) + [uk], _leaves((pa, pb)) + [up]):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            d = (a - b).abs().reshape(B, -1)
+            err = max(err, float(d[ok].max()) if bool(ok.any()) else 0.0)
+            off |= (d > X_ATOL + X_RTOL * b.abs().reshape(B, -1)).any(-1)
+        else:
+            check(torch.equal(a[ok], b[ok]), f"{tag}: plays or indices "
+                  f"differ")
+    off &= ok
+    check(torch.equal(ka.curr_play.cpu(), pa.curr_play.cpu()) and
+          torch.equal(kb.curr_play.cpu(), pb.curr_play.cpu()),
+          f"{tag}: plays differ")
+    print(f"phase4 {tag}: {B} games, {int(bad.sum())} unsettled (near-tie "
+          f"or flag knife-edge) set aside; over the other {int(ok.sum())} "
+          f"max|d| {err:.3g}, {int(off.sum())} games outside "
+          f"{X_ATOL}/{X_RTOL}", flush=True)
+    check(int(ok.sum()) >= B // 2, f"{tag}: too many unsettled games")
+    check(int(off.sum()) <= -(-int(ok.sum()) // 100), f"{tag}: trajectories "
+          f"or controls differ ({err})")
+
+
+def run_matchup(rt, kernels, name, cbf, dev, card):
+    """One 512 x 400 matchup through monte_carlo after a 10-step warm-up;
+    returns (policy, params, snapshots {step: (carry, states)}, K2
+    launches, aggregate)."""
+    from robogame_tpu_torch.agents import classical as cl
+    params = rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+    mc = rt.McParams(num_runs=B_CL, T=N_STEPS * params.dt, randomize_x0=True,
+                     x0_pos_range=(1.0, 0.5), x0_vel_range=2.0)
+    policy, ps0 = rt.classical_matchup(params, B_CL, cbf=cbf, device=dev)
+    warm = rt.monte_carlo(params, dataclasses.replace(mc, T=0.5),
+                          policy=policy, policy_state=ps0, device=dev)
+    _ = warm.scores.cpu()
+    snaps, step = {}, [0]
+
+    def spy(carry, states):
+        if step[0] in SNAP_STEPS:
+            snaps[step[0]] = (
+                tuple(cl._map(torch.clone, ts) for ts in carry),
+                type(states)(*(a.clone() for a in states)))
+        step[0] += 1
+        return policy(carry, states)
+
+    kernels.reset_launches()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    ev0.record()
+    res = rt.monte_carlo(params, mc, policy=spy, policy_state=ps0,
+                         device=dev)
+    ev1.record()
+    scores = res.scores.cpu()
+    wall = time.perf_counter() - t0
+    k1, k2 = dict(kernels.launches), dict(kernels.qp_launches)
+    n_steps = step[0]
+    agg = rt.aggregate(res)
+    print(f"phase4 {name}: {B_CL} games x {n_steps} steps in {wall:.3f} s "
+          f"wall ({ev0.elapsed_time(ev1):.1f} ms between CUDA events): "
+          f"{B_CL / wall:.3f} games/s, {B_CL * n_steps / wall:.1f} "
+          f"control-steps/s  [{card}]", flush=True)
+    print(f"phase4 {name} launches: K1 {k1}, K2 {k2}", flush=True)
+    print(f"phase4 {name} aggregate: {json.dumps(agg)}", flush=True)
+    check(n_steps == N_STEPS, f"{name}: ran {n_steps} steps")
+    check(k1["exact_export"] >= N_STEPS and k1["exact_resume"] >= N_STEPS,
+          f"{name}: K1 did not run every step")
+    want = {(30, 60): 2 * N_STEPS}
+    if cbf is not None:
+        want[(8, 20)] = N_STEPS
+    check(k2 == want, f"{name}: K2 launches {k2}, expected {want}")
+    check(scores.shape == (B_CL, 2) and bool(torch.isfinite(
+        res.damage).all()) and bool(((scores >= 0) & (
+            scores <= params.winning_score)).all()),
+          f"{name}: outputs malformed")
+    return policy, params, snaps, k2, agg
+
+
+def closed_loop_and_k2(rt, dev, card):
+    """Phases 4 and 5; returns K2's two entries of the kernels line."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.agents import classical as cl
+    from robogame_tpu_torch.control import cbf as cbf_mod
+    from robogame_tpu_torch.control import trajopt as tr
+    from robogame_tpu_torch.ops import qp, qp_lanes
+
+    # ---- phase 4: both matchups through monte_carlo ---------------------
+    cbf = rt.CbfParams()
+    policy, params, snaps, k2_main, agg_c = run_matchup(
+        rt, kernels, "classical_cbf", cbf, dev, card)
+    *_, agg_n = run_matchup(
+        rt, kernels, "classical_nocbf", None, dev, card)
+    dm_c, dm_n = agg_c["mean_total_damage"], agg_n["mean_total_damage"]
+    print(f"phase4 damage mean: CBF {dm_c:.4f} vs no CBF {dm_n:.4f}",
+          flush=True)
+    check(dm_c < dm_n, "the CBF filter did not cut the mean damage")
+    for k in SNAP_STEPS:
+        carry, states = snaps[k]
+        hold_policy(rt, f"step {k}: K2 vs plain on the card", policy,
+                    params, carry, states, cbf, "plain")
+    carry, states = snaps[SNAP_STEPS[0]]
+    first = lambda a: a[:16].contiguous()
+    c16 = tuple(cl._map(first, ts) for ts in carry)
+    s16 = type(states)(*(first(a) for a in states))
+    hold_policy(rt, f"step {SNAP_STEPS[0]}, 16 games: card vs CPU",
+                policy, params, c16, s16, cbf, "cpu")
+
+    # ---- phase 5: K2 against its plain version, times -------------------
+    x = states.x
+    B5 = B_CL * 5
+    c4 = [a.reshape(B5, 2) for a in cl._team_candidates(
+        x, -1, params, rt.StrategyParams())[:4]]
+    T, _, g, lo, hi = tr.candidate_qps(torch.cat(c4[:2], 1),
+                                       torch.cat(c4[2:], 1), params)
+    skills = (T.H, g, T.A, lo, hi)
+    err_s, ks = k2_vs_plain(f"(a) skills, step {SNAP_STEPS[0]}", *skills,
+                            group=B5, iters=60)
+    # how far each f32 route lies from the plain version in f64 (reported)
+    ps32 = qp.solve_qp(T.H.repeat_interleave(B5, 0), g,
+                       T.A.repeat_interleave(B5, 0), lo, hi, iters=60)
+    ps64 = qp.solve_qp(*(a.double() for a in (
+        T.H.repeat_interleave(B5, 0), g, T.A.repeat_interleave(B5, 0), lo,
+        hi)), iters=60)
+    all3 = ks.converged & ps32.converged & ps64.converged
+    d64 = [float((a.x.double() - ps64.x).abs()[all3].max()) for a in (
+        ks, ps32)]
+    print(f"phase5 (a') skills against the plain version in f64, "
+          f"{int(all3.sum())} problems all converged: max|dx| K2 {d64[0]:.3g}, plain f32 "
+          f"{d64[1]:.3g}", flush=True)
+    u_nom = torch.cat([rt.team_policy_batch(ts, x, f, params,
+                                            rt.StrategyParams())[1]
+                       for f, ts in zip((-1, 1), carry)], dim=1)
+    cbf_qp = cbf_mod._build_qp(u_nom, x[:, :4, 0:2], x[:, :4, 2:4], params,
+                               cbf)[:5]
+    err_c, _ = k2_vs_plain(f"(b) CBF, step {SNAP_STEPS[0]}", *cbf_qp,
+                           iters=cbf.qp_iters)
+    rnd = random_qps(dev, 2048, 40, 140, n_eq=4)
+    k2_vs_plain("(c) random (40, 140), row scaling, 4 equality rows", *rnd,
+                iters=60, scale_rows=True)
+    # DMPC's 150 iterations with 10 equality rows (1e3 rho): K is
+    # ill-conditioned and the flags sit on a knife-edge; each f32 route
+    # against the plain version in f64 (reported, not held)
+    rnd = random_qps(dev, 2048, 40, 140, n_eq=10)
+    f64 = qp.solve_qp(*(a.double() for a in rnd), iters=150,
+                      scale_rows=True)
+    k = qp_lanes.solve_qp_lanes(*rnd, iters=150, scale_rows=True)
+    p = qp.solve_qp(*rnd, iters=150, scale_rows=True)
+    agree = lambda a, b: float((a.converged == b.converged).float().mean())
+    print(f"phase5 (c') (40, 140), 10 equality rows, 150 iterations: flags "
+          f"K2 vs plain {agree(k, p):.4f}, K2 vs f64 {agree(k, f64):.4f}, "
+          f"plain vs f64 {agree(p, f64):.4f}; converged (f64) "
+          f"{float(f64.converged.float().mean()):.3f}", flush=True)
+    bc = qp_lanes.solve_qp_lanes(T.H.repeat_interleave(B5, 0), g,
+                                 T.A.repeat_interleave(B5, 0), lo, hi,
+                                 iters=60)
+    check(all(torch.equal(a, b) for a, b in zip(ks, bc)),
+          "(d) grouped operands differ from their broadcast")
+    print("phase5 (d) skills with 16 shared H and A == the broadcast "
+          "operands, bitwise", flush=True)
+
+    entries = []
+    for tag, qpa, group, iters, n, m, err in (
+            ("skills QPs", skills, B5, 60, 30, 60, err_s),
+            ("CBF QPs", cbf_qp, 1, cbf.qp_iters, 8, 20, err_c)):
+        run = lambda: qp_lanes.solve_qp_lanes(*qpa, group=group,
+                                              iters=iters)
+        for _ in range(3):
+            run()
+        ms, _ = cuda_ms(run, reps=20)
+        Hf = qpa[0].repeat_interleave(group, 0)
+        Af = qpa[2].repeat_interleave(group, 0)
+        plain_ms, _ = cuda_ms(lambda: qp.solve_qp(
+            Hf, qpa[1], Af, qpa[3], qpa[4], iters=iters), reps=3)
+        P = qpa[1].shape[0]
+        bound, by = k2_bound_ms(qpa[0].shape[0], P, n, m, 4, iters // 4)
+        print(f"phase5 K2 {tag} (P={P}, n={n}, m={m}): {ms:.4f} ms per "
+              f"launch; plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+              f"({by})  [{card}]", flush=True)
+        entries.append({
+            "name": f"K2 qp_admm, {tag} (n={n}, m={m}, {P} per launch)",
+            "route": "cuda",
+            "source": "robogame_tpu_torch/csrc/qp_admm.cu",
+            "replaces": "robogame_tpu/ops/qp_pallas.py:100",
+            "launches": k2_main[(n, m)],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -84,10 +471,10 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    kernels.build()
+    kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase0 build K1: {build_s:.2f} s (nvcc {kernels.build_seconds})"
-          f"  [{card}]", flush=True)
+    print(f"phase0 build K1 + K2: {build_s:.2f} s (nvcc seconds "
+          f"{kernels.build_seconds})  [{card}]", flush=True)
 
     P1 = rt.SimParams(engine="pallas_exact", two_phase=False)
     errs = []
@@ -316,7 +703,8 @@ def main() -> int:
           f"export {exp_ms:.4f} ms + resume {res_ms:.4f} ms; plain "
           f"{pl_exp_ms:.1f} + {pl_res_ms:.1f} ms; bound {t_bytes:.4f} ms "
           f"bytes / {t_ops:.4f} ms ops  [{card}]", flush=True)
-    print(json.dumps({"kernels": [kern]}))
+    k2 = closed_loop_and_k2(rt, dev, card)
+    print(json.dumps({"kernels": [kern, *k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

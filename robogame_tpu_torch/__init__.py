@@ -1,24 +1,47 @@
 """robogame_tpu_torch: the 2v2 air-hockey simulator in PyTorch and CUDA.
 
 The batched Monte-Carlo game step runs on a hand-written CUDA kernel for
-Hopper (``csrc/exact_step.cu``); every entry point runs on ``cuda`` unless
-the caller passes ``device="cpu"``, which runs the plain PyTorch version of
-the same step.
+Hopper (``csrc/exact_step.cu``, K1), and every batched QP of the classical
+team and the CBF safety filter on a second one (``csrc/qp_admm.cu``, K2).
+Every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``, which runs the plain PyTorch versions of the kernels.
 
     from robogame_tpu_torch import McParams, SimParams, monte_carlo
     res = monte_carlo(SimParams(engine="pallas_exact"), McParams(8192))
+
+    # classical vs classical behind the CBF filter, 512 full games
+    from robogame_tpu_torch import CbfParams, classical_matchup
+    params = SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+    policy, ps = classical_matchup(params, 512, cbf=CbfParams())
+    res = monte_carlo(params, McParams(512, T=20.0, randomize_x0=True,
+                                       x0_pos_range=(1.0, 0.5),
+                                       x0_vel_range=2.0),
+                      policy=policy, policy_state=ps)
 """
 
+from .agents.classical import (ClassicalTeam, PlayerState, TeamState,
+                               classical_matchup, initial_team_state,
+                               team_policy, team_policy_batch,
+                               team_state_from_numpy, team_state_to_numpy)
 from .config import (CbfParams, MpcParams, SimParams, StrategyParams,
                      resolve_device)
+from .control.cbf import CbfResult, safe_control, safe_control_batch
+from .control.trajopt import Trajectory, min_time_traj, min_time_traj_batch
+from .ops.qp import QpSolution, solve_qp
+from .ops.qp_lanes import solve_qp_lanes
 from .parallel.monte_carlo import McParams, McResult, aggregate, monte_carlo
 from .physics.exact_step import step_batch
 from .state import (GameState, SimStateView, from_numpy, from_vector,
                     initial_state, to_numpy, to_vector, undecided)
 
 __all__ = [
-    "CbfParams", "GameState", "McParams", "McResult", "MpcParams",
-    "SimParams", "SimStateView", "StrategyParams", "aggregate",
-    "from_numpy", "from_vector", "initial_state", "monte_carlo",
-    "resolve_device", "step_batch", "to_numpy", "to_vector", "undecided",
+    "CbfParams", "CbfResult", "ClassicalTeam", "GameState", "McParams",
+    "McResult", "MpcParams", "PlayerState", "QpSolution", "SimParams",
+    "SimStateView", "StrategyParams", "TeamState", "Trajectory",
+    "aggregate", "classical_matchup", "from_numpy", "from_vector",
+    "initial_state", "initial_team_state", "min_time_traj",
+    "min_time_traj_batch", "monte_carlo", "resolve_device", "safe_control",
+    "safe_control_batch", "solve_qp", "solve_qp_lanes", "step_batch",
+    "team_policy", "team_policy_batch", "team_state_from_numpy",
+    "team_state_to_numpy", "to_numpy", "to_vector", "undecided",
 ]

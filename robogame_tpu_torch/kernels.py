@@ -1,17 +1,23 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-``csrc/exact_step.cu`` (K1, the event-order-exact control step) is compiled
-at first use by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface under ``build/robogame_tpu_torch/`` beside the package, and bound
-with ``ctypes``.  Nothing here runs while the module is imported, so the
-CPU tests import it freely.
+Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface under
+``build/robogame_tpu_torch/`` beside the package (named by a hash of the
+source and the flags), and bound with ``ctypes``:
+
+* K1, ``csrc/exact_step.cu``: the event-order-exact control step;
+* K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve.
+
+:func:`build_all` starts one ``nvcc`` per source that is not built yet, all
+at once.  Nothing here runs while the module is imported, so the CPU tests
+import it freely.
 
 Flags: ``-fmad=false`` and no fast math, so each f32 operation is the IEEE
-operation the plain PyTorch version does (true division, correctly rounded
+operation the plain PyTorch versions do (true division, correctly rounded
 square root, no contraction into FMAs).
 
-``launches`` counts the kernel's launches per mode; only the launch path
-below adds to it.
+Launch counters, added to only by the launch paths below: ``launches``
+holds K1's per mode, ``qp_launches`` K2's per (n, m) shape.
 """
 
 from __future__ import annotations
@@ -28,20 +34,23 @@ import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "exact_step.cu"
+SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
+           "qp_admm": _PKG / "csrc" / "qp_admm.cu"}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
-build_seconds = None
-_lib = None
+qp_launches: dict = {}
+build_seconds: dict = {}
+_libs: dict = {}
 
 
 def reset_launches() -> None:
     for mode in launches:
         launches[mode] = 0
+    qp_launches.clear()
 
 
 def _nvcc() -> str:
@@ -55,36 +64,61 @@ def _nvcc() -> str:
     return str(cand)
 
 
-def build() -> Path:
-    """Compile K1 unless a library built from this source and these flags
-    exists; returns its path."""
-    global build_seconds
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _out_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libexact_step-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
-    return out
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rg_exact_step.argtypes = [p] * 13 + [i, i, i, i, p]
-        lib.rg_exact_step.restype = i
-        _lib = lib
-    return _lib
+def build_all(names=None) -> dict:
+    """Compile the named kernels (default: all) that have no library built
+    from their current source and flags, one ``nvcc`` each, all started
+    together; returns {name: library path}."""
+    names = list(SOURCES) if names is None else list(names)
+    outs = {name: _out_path(name) for name in names}
+    todo = [name for name in names if not outs[name].exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        jobs = {}
+        for name in todo:
+            tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
+            jobs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err}")
+                continue
+            os.replace(tmp, outs[name])
+            build_seconds[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile one kernel unless it is built; returns its library."""
+    return build_all([name])[name]
+
+
+def _library(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "exact_step":
+            lib.rg_exact_step.argtypes = [p] * 13 + [i, i, i, i, p]
+            lib.rg_exact_step.restype = i
+        else:
+            lib.rg_qp_admm.argtypes = [p] * 7 + [i] * 6 + [f] * 5 + [p]
+            lib.rg_qp_admm.restype = i
+        _libs[name] = lib
+    return lib
 
 
 def _ptr(t):
@@ -129,7 +163,7 @@ def exact_step(M6, consts: np.ndarray, x, u, meta, dmg, noise, rnoise,
     consts = np.ascontiguousarray(consts, dtype=np.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().rg_exact_step(
+        err = _library("exact_step").rg_exact_step(
             consts.ctypes.data, _ptr(M6), _ptr(x), _ptr(u), _ptr(meta),
             _ptr(dmg), _ptr(noise), _ptr(rnoise), _ptr(grid),
             _ptr(carry_in if mode == "exact_resume" else None), _ptr(xout),
@@ -139,3 +173,34 @@ def exact_step(M6, consts: np.ndarray, x, u, meta, dmg, noise, rnoise,
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     launches[mode] += 1
     return xout, aux, grid, carry
+
+
+def qp_admm(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,
+            rho: float, sigma: float, alpha: float, tol: float):
+    """Launch K2 over P = g.shape[0] problems on the current stream: H
+    (P/group, n, n), g (P, n), A (P/group, m, n), l/u (P, m).  Returns
+    x (P, n) and stats (P, 3) = [converged, prim_res, dual_res]."""
+    dev = g.device
+    P, n = g.shape
+    m = A.shape[1]
+    G = P // group
+    for name, t, shape in (("H", H, (G, n, n)), ("g", g, (P, n)),
+                           ("A", A, (G, m, n)), ("l", l, (P, m)),
+                           ("u", u, (P, m))):
+        _check(name, t, shape, dev)
+    x = torch.empty((P, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    if P == 0:
+        return x, stats
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("qp_admm").rg_qp_admm(
+            _ptr(H), _ptr(g), _ptr(A), _ptr(l), _ptr(u), _ptr(x),
+            _ptr(stats), P, n, m, int(group), int(n_seg), int(seg_iters),
+            float(rho), float(sigma), float(alpha), float(tol),
+            float(10.0 * tol), stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {err} "
+                           f"(P={P}, n={n}, m={m}, group={group})")
+    qp_launches[(n, m)] = qp_launches.get((n, m), 0) + 1
+    return x, stats

@@ -1,16 +1,25 @@
-"""Where the main path's time goes on the card.
+"""Where a main path's time goes on the card.
 
-    python -m robogame_tpu_torch.profile_main_path
+    python -m robogame_tpu_torch.profile_main_path [--path bench|classical_cbf]
 
-Runs the bench workload (8192 games, per-game U(-8, 8) schedules held 10
-steps, winning_score=4, two-phase exact step) for 200 control steps, then
-traces 40 more with ``torch.profiler`` and prints the wall time per step,
-the device time per kernel name and the device's busy share of the traced
-wall time.  Needs a CUDA device.
+``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
+schedules held 10 steps, winning_score=4, two-phase exact step) for 200
+control steps, then 40 more traced.
+
+``classical_cbf`` (slice 2): the classical vs classical matchup behind the
+CBF filter (512 games, randomized puck starts) for 100 control steps, then
+20 more traced.
+
+Both trace with ``torch.profiler`` and print the wall time per step, the
+device time per kernel name, the device's busy share of the traced wall
+time, and a split into K1, K2 (skills and CBF: the kernel's template
+argument is its rows per lane, 2 for the skills' 60 rows and 1 for the
+CBF's 20) and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import subprocess
 import time
@@ -18,20 +27,14 @@ import time
 import torch
 
 B, HOLD, STEPS = 8192, 10, 40
+B_CL, WARM_CL, STEPS_CL = 512, 100, 20
+# kernel-name fragments of the split
+GROUPS = (("K1 exact_step", "exact_step_kernel"),
+          ("K2 skills (n=30, m=60)", "qp_admm_kernel<2>"),
+          ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_main_path: no CUDA device")
-    import robogame_tpu_torch as rt
-    mc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
-    from torch.profiler import ProfilerActivity, profile
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
+def _bench(rt, mc, dev):
     p = rt.SimParams(engine="pallas_exact", winning_score=4, two_phase=True,
                      phase1_iters=1, compact_frac=16)
     g = torch.Generator().manual_seed(0)
@@ -45,11 +48,44 @@ def main() -> None:
     s = mc._initial_states(p, rt.McParams(num_runs=B, randomize_x0=True),
                            device=dev)
     s, ps = mc._run_batch(s, p, 200, schedule, (0, u), device=dev)
+    return p, schedule, s, ps, B, 200, STEPS
+
+
+def _classical_cbf(rt, mc, dev):
+    p = rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+    policy, ps = rt.classical_matchup(p, B_CL, cbf=rt.CbfParams(),
+                                      device=dev)
+    s = mc._initial_states(p, rt.McParams(
+        num_runs=B_CL, randomize_x0=True, x0_pos_range=(1.0, 0.5),
+        x0_vel_range=2.0), device=dev)
+    s, ps = mc._run_batch(s, p, WARM_CL, policy, ps, device=dev)
+    return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("bench", "classical_cbf"),
+                    default="bench")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main_path: no CUDA device")
+    import robogame_tpu_torch as rt
+    mc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    setup = _bench if args.path == "bench" else _classical_cbf
+    p, policy, s, ps, n_games, warm, steps = setup(rt, mc, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s, ps = mc._run_batch(s, p, STEPS, schedule, ps, device=dev)
+        s, ps = mc._run_batch(s, p, steps, policy, ps, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -59,15 +95,24 @@ def main() -> None:
             rows.append((ev.device_time_total, ev.key, ev.count))
     busy_us = sum(r[0] for r in rows)
     print(f"card: {card}")
-    print(f"B={B}, steps 200..{200 + STEPS}: {wall / STEPS * 1e3:.4f}"
-          f" ms wall per step (traced)")
+    print(f"path {args.path}: B={n_games}, steps {warm}..{warm + steps}: "
+          f"{wall / steps * 1e3:.4f} ms wall per step (traced)")
     if not rows:
         print("device time: not measured (the trace holds no device events)")
         return
     print(f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall: "
           f"{busy_us / (wall * 1e6):.4f}")
+    rest = busy_us
+    for label, frag in GROUPS:
+        us = sum(r[0] for r in rows if frag in r[1])
+        n = sum(r[2] for r in rows if frag in r[1])
+        rest -= us
+        print(f"  {label}: {us / steps:10.2f} us/step  {n} launches")
+    print(f"  glue (every other kernel and copy): {rest / steps:10.2f} "
+          f"us/step")
+    print(f"  device idle: {(wall * 1e6 - busy_us) / steps:10.2f} us/step")
     for dev_us, key, count in sorted(rows, reverse=True)[:12]:
-        print(f"  {dev_us / STEPS:10.2f} us/step  {count:6d} launches  "
+        print(f"  {dev_us / steps:10.2f} us/step  {count:6d} launches  "
               f"{key[:90]}")
 
 
