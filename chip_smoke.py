@@ -6,8 +6,9 @@
 Phases, each failing loudly (nothing here catches an error):
 
 0. the card's name and power limit (nvidia-smi), then the builds of the
-   hand-written CUDA kernels K1 (csrc/exact_step.cu) and K2
-   (csrc/qp_admm.cu) from this checkout, one nvcc each, started together;
+   hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu)
+   and K3 (csrc/dmpc_sqp.cu) from this checkout, one nvcc each, started
+   together;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
    (b) corner-grinding games (B=1024, pre-ground 26 steps by the kernel),
@@ -37,10 +38,22 @@ Phases, each failing loudly (nothing here catches an error):
    (and, reported only, how each f32 route's flags agree with the plain
    version in f64 at 150 iterations), and shared operands bitwise equal to
    their broadcast; K2's time per
-   launch at both matchup shapes beside its bound and the plain time.
+   launch at both matchup shapes beside its bound and the plain time;
+6. slice 3's main path: (a) the dmpc_vs_dmpc and dmpc_vs_noop matchups
+   (512 games, 400 control steps each) through ``monte_carlo``, each timed
+   after a warm-up with its K1, K2 and K3 launch counts (K3: one launch
+   per DMPC team and step, 8192 SQPs each for two teams); DMPC must score
+   against the no-op team.  From the states of step 100 of dmpc_vs_dmpc:
+   (b) K3 against its plain version on team A's 8192 candidate SQPs (and
+   each against the plain version in f64, reported); (c) K3 with one SQP
+   iteration against K2 (the controller's 'lanes' route) on the same
+   candidates; (d) the policy on K3 against the policy on the plain
+   version at steps 50, 100, ..., 350, and 64 games on the card against
+   the CPU at steps 100 and 200;
+   (e) K3's time per launch beside its bound and the plain time.
 
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
-K2 at the skills shape, K2 at the CBF shape); the last line is
+K2 at the skills shape, K2 at the CBF shape, K3); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 1 before printing any result.
 """
@@ -49,6 +62,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -59,6 +73,7 @@ import torch
 B_MAIN, N_STEPS, HOLD = 8192, 400, 10
 B_CL = 512                          # games of each closed-loop matchup
 SNAP_STEPS = (100, 200)             # states the policy checks start from
+DMPC_SNAPS = tuple(range(50, N_STEPS, 50))  # and those of the DMPC policy
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12              # f32 outside the tensor cores
 # a candidate skill whose best two final-time costs lie this close may
@@ -194,9 +209,14 @@ def k2_vs_plain(tag, H, g, A, l, u, group=1, **kw):
     return err, k
 
 
-def _leaves(carry):
-    return [a for ts in carry for a in (*ts.goalie, *ts.player,
-                                        ts.curr_play)]
+def _tensors(tree):
+    """The tensors of a carry of (named) tuples, depth first (None and
+    other leaves skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for a in tree for t in _tensors(a)]
+    return []
 
 
 def unsettled_games(rt, params, carry, states, cbf, route):
@@ -259,7 +279,7 @@ def hold_policy(rt, tag, policy, params, carry, states, cbf, route):
     B = states.x.shape[0]
     err = 0.0
     off = torch.zeros(B, dtype=torch.bool)
-    for a, b in zip(_leaves((ka, kb)) + [uk], _leaves((pa, pb)) + [up]):
+    for a, b in zip(_tensors((ka, kb, uk)), _tensors((pa, pb, up))):
         a, b = a.cpu(), b.cpu()
         if a.is_floating_point():
             d = (a - b).abs().reshape(B, -1)
@@ -281,25 +301,44 @@ def hold_policy(rt, tag, policy, params, carry, states, cbf, route):
           f"or controls differ ({err})")
 
 
-def run_matchup(rt, kernels, name, cbf, dev, card):
-    """One 512 x 400 matchup through monte_carlo after a 10-step warm-up;
-    returns (policy, params, snapshots {step: (carry, states)}, K2
-    launches, aggregate)."""
-    from robogame_tpu_torch.agents import classical as cl
-    params = rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
-    mc = rt.McParams(num_runs=B_CL, T=N_STEPS * params.dt, randomize_x0=True,
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a carry of (named) tuples; other leaves
+    (None, ints) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        parts = [_tree_map(fn, a) for a in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else \
+            tuple(parts)
+    return tree
+
+
+def _clone(tree):
+    return _tree_map(torch.clone, tree)
+
+
+def matchup_params(rt):
+    """The matchups' physics (examples/matchups.py:180)."""
+    return rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+
+
+def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
+    """One 512-game matchup of N_STEPS steps through monte_carlo after a
+    10-step warm-up; returns (params, snapshots {step: (carry, states)} at
+    the steps ``snap``, launches {"K1", "K2", "K3"} of the run,
+    aggregate)."""
+    params = matchup_params(rt)
+    mc = rt.McParams(num_runs=B_CL, T=round(N_STEPS * params.dt, 9),
+                     randomize_x0=True,
                      x0_pos_range=(1.0, 0.5), x0_vel_range=2.0)
-    policy, ps0 = rt.classical_matchup(params, B_CL, cbf=cbf, device=dev)
     warm = rt.monte_carlo(params, dataclasses.replace(mc, T=0.5),
                           policy=policy, policy_state=ps0, device=dev)
     _ = warm.scores.cpu()
     snaps, step = {}, [0]
 
     def spy(carry, states):
-        if step[0] in SNAP_STEPS:
-            snaps[step[0]] = (
-                tuple(cl._map(torch.clone, ts) for ts in carry),
-                type(states)(*(a.clone() for a in states)))
+        if step[0] in snap:
+            snaps[step[0]] = (_clone(carry), _clone(states))
         step[0] += 1
         return policy(carry, states)
 
@@ -312,26 +351,39 @@ def run_matchup(rt, kernels, name, cbf, dev, card):
     ev1.record()
     scores = res.scores.cpu()
     wall = time.perf_counter() - t0
-    k1, k2 = dict(kernels.launches), dict(kernels.qp_launches)
-    n_steps = step[0]
+    launches = {"K1": dict(kernels.launches), "K2": dict(kernels.qp_launches),
+                "K3": dict(kernels.sqp_launches)}
     agg = rt.aggregate(res)
-    print(f"phase4 {name}: {B_CL} games x {n_steps} steps in {wall:.3f} s "
-          f"wall ({ev0.elapsed_time(ev1):.1f} ms between CUDA events): "
-          f"{B_CL / wall:.3f} games/s, {B_CL * n_steps / wall:.1f} "
+    print(f"{name}: {B_CL} games x {step[0]} steps in {wall:.3f} s wall "
+          f"({ev0.elapsed_time(ev1):.1f} ms between CUDA events): "
+          f"{B_CL / wall:.3f} games/s, {B_CL * step[0] / wall:.1f} "
           f"control-steps/s  [{card}]", flush=True)
-    print(f"phase4 {name} launches: K1 {k1}, K2 {k2}", flush=True)
-    print(f"phase4 {name} aggregate: {json.dumps(agg)}", flush=True)
-    check(n_steps == N_STEPS, f"{name}: ran {n_steps} steps")
+    print(f"{name} launches: {launches}", flush=True)
+    print(f"{name} aggregate: {json.dumps(agg)}", flush=True)
+    check(step[0] == N_STEPS, f"{name}: ran {step[0]} steps")
+    k1 = launches["K1"]
     check(k1["exact_export"] >= N_STEPS and k1["exact_resume"] >= N_STEPS,
           f"{name}: K1 did not run every step")
-    want = {(30, 60): 2 * N_STEPS}
-    if cbf is not None:
-        want[(8, 20)] = N_STEPS
-    check(k2 == want, f"{name}: K2 launches {k2}, expected {want}")
     check(scores.shape == (B_CL, 2) and bool(torch.isfinite(
         res.damage).all()) and bool(((scores >= 0) & (
             scores <= params.winning_score)).all()),
           f"{name}: outputs malformed")
+    return params, snaps, launches, agg
+
+
+def run_classical(rt, kernels, name, cbf, dev, card):
+    """A classical matchup (phase 4): K2 runs 2 skills launches a step and
+    one CBF launch with the filter; returns (policy, params, snapshots, K2
+    launches, aggregate)."""
+    policy, ps0 = rt.classical_matchup(matchup_params(rt), B_CL, cbf=cbf,
+                                       device=dev)
+    params, snaps, launches, agg = run_matchup(
+        rt, kernels, f"phase4 {name}", policy, ps0, dev, card)
+    want = {(30, 60): 2 * N_STEPS}
+    if cbf is not None:
+        want[(8, 20)] = N_STEPS
+    k2 = launches["K2"]
+    check(k2 == want, f"{name}: K2 launches {k2}, expected {want}")
     return policy, params, snaps, k2, agg
 
 
@@ -345,9 +397,9 @@ def closed_loop_and_k2(rt, dev, card):
 
     # ---- phase 4: both matchups through monte_carlo ---------------------
     cbf = rt.CbfParams()
-    policy, params, snaps, k2_main, agg_c = run_matchup(
+    policy, params, snaps, k2_main, agg_c = run_classical(
         rt, kernels, "classical_cbf", cbf, dev, card)
-    *_, agg_n = run_matchup(
+    *_, agg_n = run_classical(
         rt, kernels, "classical_nocbf", None, dev, card)
     dm_c, dm_n = agg_c["mean_total_damage"], agg_n["mean_total_damage"]
     print(f"phase4 damage mean: CBF {dm_c:.4f} vs no CBF {dm_n:.4f}",
@@ -451,6 +503,327 @@ def closed_loop_and_k2(rt, dev, card):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 6: DMPC on K3
+# ---------------------------------------------------------------------------
+
+# a flag whose margin max(prim / (tol p_sc), dual / (10 tol d_sc)) lies
+# within this share of 1 may flip under f32 roundoff
+FLAG_EDGE = 1e-2
+SET_ASIDE_MAX = 0.10    # share of games the policy check may set aside
+# K3 against its plain version: the share of the SQPs (both converged)
+# that may lie outside X_ATOL/X_RTOL.  The plain version in f32 itself lies
+# outside that tolerance of the plain version in f64 on about 0.5% of the
+# converged SQPs (flat directions of H, rank 4 plus 0.02 I, carried on by
+# the nonconvex relinearization).
+SQP_OFF_MAX = 0.01
+# the share of the held games (four agents' warm states and controls each)
+# outside X_ATOL/X_RTOL, pooled over the DMPC_SNAPS states of the run
+# recorded in PERF.md (59 of 3,577 games); a policy check fails above its
+# binomial 3-sigma upper bound for the check's number of games
+POLICY_OFF_RATE = 59 / 3577
+
+
+def policy_off_limit(n):
+    p = POLICY_OFF_RATE
+    return n * p + 3.0 * math.sqrt(n * p * (1.0 - p))
+
+N_CPU = 64              # games of the DMPC policy held against the CPU
+
+
+@contextlib.contextmanager
+def sqp_hook(mode, seen):
+    """Record the inputs of every fused DMPC solve of the controllers in
+    ``seen`` and run it on K3 (``mode='capture'``) or on K3's plain version
+    on the tensors' own device (``mode='plain'``)."""
+    from robogame_tpu_torch.ops import sqp_lanes
+    kernel_route = sqp_lanes.dmpc_sqp_stats
+
+    def hook(*args, **kw):
+        seen.append((args, kw))
+        if mode == "capture":
+            return kernel_route(*args, **kw)
+        return sqp_lanes._plain_stats(*(a.float().contiguous()
+                                        for a in args), **kw)
+
+    sqp_lanes.dmpc_sqp_stats = hook
+    try:
+        yield
+    finally:
+        sqp_lanes.dmpc_sqp_stats = kernel_route
+
+
+def k3_flops(n1, m, M, N, n_seg0, it0, sqp_rest, it_rest):
+    """The f32 operations of one K3 solve: the gram terms once; per
+    relinearization the knot positions, the keepout rows and A; per
+    reseed A x; per segment the lower triangle of K, the Cholesky factor
+    and its inverse (n1^3 / 3 each) and the residuals; per iteration two
+    products with A, one with C and one with C' and the vector updates of
+    the own and the box rows.  The loop counts are fixed, so every SQP
+    does this work."""
+    gram = 6 * N * n1
+    relin = 4 * N * n1 + 20 * M * N + 4 * m * n1
+    reseed = 2 * m * n1
+    seg = m * n1 * (n1 + 1) + 2 * n1 ** 3 // 3 + 2 * m * n1 + \
+        2 * n1 * n1 + 5 * m + 5 * n1
+    it = 4 * m * n1 + 2 * n1 * n1 + 12 * m + 12 * n1
+    return gram + (1 + sqp_rest) * relin + sqp_rest * reseed + \
+        (n_seg0 + sqp_rest) * seg + (n_seg0 * it0 + sqp_rest * it_rest) * it
+
+
+def k3_bound_ms(args, kw):
+    """(bound ms, 'bytes' or 'operations') of one K3 launch on ``args``:
+    each input read once, x and the 5 stats written once, against the f32
+    rate."""
+    B, n1 = args[1].shape
+    N, M = kw["N"], kw["n_obs"]
+    nbytes = 4 * (sum(a.numel() for a in args) + B * (n1 + 5))
+    flops = B * k3_flops(n1, (2 + M) * N, M, N, kw["n_seg0"], kw["it0"],
+                         kw["sqp_rest"], kw["it_rest"])
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def k3_vs_plain(tag, args, kw):
+    """K3 and its plain version on the same SQPs.  Held: flags agree on >=
+    99%; where both converged, the QP objectives 1/2 x'Hx + g'x agree
+    within 2e-2 (1 + |f|), x within X_ATOL/X_RTOL on all but SQP_OFF_MAX
+    of the SQPs, and K3 lies no further from the plain version in f64 than
+    the plain version in f32 does (at most twice its count of SQPs outside
+    X_ATOL/X_RTOL, plus 0.1%).  Reported: how many flag disagreements are
+    knife-edges.  Returns max |dx| where both converged."""
+    from robogame_tpu_torch.ops import sqp_lanes
+    xk, sk = sqp_lanes.dmpc_sqp_stats(*args, **kw)
+    xp, sp = sqp_lanes._plain_stats(*args, **kw)
+    x64, s64 = sqp_lanes._plain_stats(*(a.double() for a in args), **kw)
+    torch.cuda.synchronize()
+    ck, cp, c64 = sk[:, 0] > 0.5, sp[:, 0] > 0.5, s64[:, 0] > 0.5
+    agree = float((ck == cp).float().mean())
+    both = ck & cp
+    nb = int(both.sum())
+    dx = (xk - xp).abs()
+    err = float(dx[both].max()) if nb else 0.0
+    off = both & (dx > X_ATOL + X_RTOL * xp.abs()).any(-1)
+    H, g = args[0].double(), args[1].double()
+    fk, fp = (0.5 * torch.einsum("bi,bij,bj->b", x, H, x) + (g * x).sum(-1)
+              for x in (xk.double(), xp.double()))
+    df = ((fk - fp).abs() / (1 + fp.abs()))[both]
+    dfmax = float(df.max()) if nb else 0.0
+    dis = ck != cp
+    edge = dis & (((sqp_lanes.flag_margin(sk) - 1).abs() <= FLAG_EDGE) |
+                  ((sqp_lanes.flag_margin(sp) - 1).abs() <= FLAG_EDGE))
+    all3 = both & c64
+    n3 = int(all3.sum())
+    d64 = [(x.double() - x64).abs() for x in (xk, xp)]
+    off64 = [int((all3 & (d > X_ATOL + X_RTOL * x64.abs()).any(-1)).sum())
+             for d in d64]
+    d64 = [float(d[all3].max()) for d in d64]
+    print(f"phase6 {tag}: {xk.shape[0]} SQPs: flags agree {agree:.5f} "
+          f"({int(dis.sum())} differ, {int(edge.sum())} of them within "
+          f"{FLAG_EDGE:.0%} of the threshold), converged K3 "
+          f"{float(ck.float().mean()):.4f} plain {float(cp.float().mean()):.4f}"
+          f" f64 {float(c64.float().mean()):.4f}; both converged {nb}: max|dx|"
+          f" {err:.3g}, {int(off.sum())} outside {X_ATOL}/{X_RTOL}, max "
+          f"|df|/(1+|f|) {dfmax:.3g}; against f64 ({n3} all converged) "
+          f"outside {X_ATOL}/{X_RTOL}: K3 {off64[0]}, plain f32 {off64[1]}; "
+          f"max|dx| K3 {d64[0]:.3g}, plain f32 {d64[1]:.3g}", flush=True)
+    check(agree >= 0.99, f"{tag}: K3 and plain flags agree on {agree}")
+    check(dfmax <= 2e-2, f"{tag}: K3's objective differs ({dfmax})")
+    check(int(off.sum()) <= SQP_OFF_MAX * nb, f"{tag}: K3 disagrees with "
+          f"its plain version ({int(off.sum())} SQPs, max {err})")
+    check(off64[0] <= 2 * off64[1] + n3 // 1000, f"{tag}: K3 lies further "
+          f"from the f64 solution than the plain f32 version ({off64})")
+    return err
+
+
+def _team_candidates(dt, dm, ts, x, field, params, mpc, strat, route="fused"):
+    x0s, tgts, obss = dt.team_inputs(x, field, params, strat)
+    return dm.candidates(dt._flat_states(ts), x0s.flatten(0, 1),
+                         tgts.flatten(0, 1), obss.flatten(0, 1), params, mpc,
+                         route)
+
+
+def hold_dmpc_policy(rt, tag, policy, params, carry, states, route):
+    """The DMPC matchup's policy on K3 against the same policy on
+    ``route`` ('plain': K3's plain version on the card, 'cpu': on the
+    CPU) from one state.  A game is set aside where an agent's winning
+    candidate differs between the two and the difference is explained: the
+    best cost within NEAR_TIE of another step size's on either side
+    (``runner_up_gap``), a flag within FLAG_EDGE of its threshold, or a
+    flag that differs between the sides.  At most SET_ASIDE_MAX of the
+    games may be set aside; in the others every winner must be the same
+    and the new warm states and controls agree within X_ATOL/X_RTOL in all
+    but ``policy_off_limit`` of the games.  The plain route must make one
+    solve per DMPC team and call, and launch no K3.
+    Prints and returns (tag, share set aside, games outside, games held);
+    the caller holds them to the limits."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.agents import dmpc_team as dt
+    from robogame_tpu_torch.control import dmpc as dm
+    mpc, strat = rt.MpcParams(), rt.StrategyParams()
+    B = states.x.shape[0]
+
+    def other(fn, n_solves):
+        if route == "cpu":
+            cpu = lambda a: a.cpu()
+            return fn(_tree_map(cpu, carry), _tree_map(cpu, states))
+        calls, before = [], dict(kernels.sqp_launches)
+        with sqp_hook("plain", calls):
+            out = fn(carry, states)
+        check(len(calls) == n_solves and kernels.sqp_launches == before,
+              f"{tag}: the plain route made {len(calls)} solves (expected "
+              f"{n_solves}) and K3 launches went {before} -> "
+              f"{kernels.sqp_launches}")
+        return out
+
+    (ka, kb), uk = policy(carry, states)
+    (pa, pb), up = other(policy, sum(c is not None for c in carry))
+    aside = torch.zeros(B, dtype=torch.bool)
+    odd = torch.zeros(B, dtype=torch.bool)
+    for field, i in ((-1, 0), (1, 1)):
+        if carry[i] is None:
+            continue
+        ck = _team_candidates(dt, dm, carry[i], states.x, field, params,
+                              mpc, strat)
+        cp = other(lambda c, s: _team_candidates(dt, dm, c[i], s.x, field,
+                                                 params, mpc, strat), 1)
+        ck, cp = (type(c)(*(a.cpu() for a in c)) for c in (ck, cp))
+        differ = ck.cost.argmin(1) != cp.cost.argmin(1)
+        explained = ((dm.runner_up_gap(ck) <= NEAR_TIE) |
+                     (dm.runner_up_gap(cp) <= NEAR_TIE) |
+                     ((ck.margin - 1).abs() <= FLAG_EDGE).any(1) |
+                     ((cp.margin - 1).abs() <= FLAG_EDGE).any(1) |
+                     (ck.conv != cp.conv).any(1))
+        aside |= (differ & explained).reshape(B, 2).any(1)
+        odd |= (differ & ~explained).reshape(B, 2).any(1)
+    ok = ~aside
+    err = 0.0
+    off = odd.clone()
+    for a, b in zip(_tensors((ka, kb, uk)), _tensors((pa, pb, up))):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.bool:
+            off |= (a != b).reshape(B, -1).any(-1)
+            continue
+        d = (a - b).abs().reshape(B, -1)
+        err = max(err, float(d[ok].max()) if bool(ok.any()) else 0.0)
+        off |= (d > X_ATOL + X_RTOL * b.abs().reshape(B, -1)).any(-1)
+    off &= ok
+    n_ok = int(ok.sum())
+    print(f"phase6 {tag}: {B} games, {int(aside.sum())} set aside "
+          f"({float(aside.float().mean()):.4f}: a winner differs at a "
+          f"near-tie or a flag edge); over the other {n_ok} max|d| "
+          f"{err:.3g}, {int(off.sum())} games outside {X_ATOL}/{X_RTOL} "
+          f"({int((odd & ok).sum())} with an unexplained winner)", flush=True)
+    return tag, float(aside.float().mean()), int(off.sum()), n_ok
+
+
+def dmpc_phase(rt, dev, card):
+    """Phase 6; returns K3's entry of the kernels line."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.agents import dmpc_team as dt
+    from robogame_tpu_torch.control import dmpc as dm
+    from robogame_tpu_torch.ops import sqp_lanes
+
+    mpc, strat = rt.MpcParams(), rt.StrategyParams()
+    # ---- (a) dmpc_vs_dmpc and dmpc_vs_noop through monte_carlo ----------
+    runs = {}
+    for name, opp in (("dmpc_vs_dmpc", "dmpc"), ("dmpc_vs_noop", "noop")):
+        policy, ps0 = dt.dmpc_matchup(matchup_params(rt), B_CL, opp, mpc,
+                                      strat, device=dev)
+        params, snaps, launches, agg = run_matchup(
+            rt, kernels, f"phase6 (a) {name}", policy, ps0, dev, card,
+            DMPC_SNAPS)
+        teams = 2 if opp == "dmpc" else 1
+        want = {(2 * mpc.N, (2 + dm.N_NEIGHBORS) * mpc.N): teams * N_STEPS}
+        check(launches["K3"] == want and not launches["K2"],
+              f"{name}: K3 launches {launches['K3']}, expected {want}, K2 "
+              f"{launches['K2']}")
+        runs[name] = (policy, params, snaps, launches, agg)
+    goals_a = runs["dmpc_vs_noop"][4]["mean_score_a"]
+    print(f"phase6 (a) dmpc_vs_noop goals_a {goals_a:.4f} a game; "
+          f"dmpc_vs_dmpc goals {runs['dmpc_vs_dmpc'][4]['mean_score_a']:.4f}"
+          f" / {runs['dmpc_vs_dmpc'][4]['mean_score_b']:.4f}, mean damage "
+          f"{runs['dmpc_vs_dmpc'][4]['mean_total_damage']:.4f}", flush=True)
+    check(goals_a > 0, "dmpc_vs_noop: DMPC did not score")
+
+    # ---- (b) K3 against its plain version at step 100 -------------------
+    policy, params, snaps, launches, _ = runs["dmpc_vs_dmpc"]
+    carry, states = snaps[SNAP_STEPS[0]]
+    seen = []
+    with sqp_hook("capture", seen):
+        _team_candidates(dt, dm, carry[0], states.x, -1, params, mpc, strat)
+    args, kw = seen[0]
+    err = k3_vs_plain(f"(b) K3 vs plain, team A's {args[1].shape[0]} "
+                      f"candidate SQPs at step {SNAP_STEPS[0]}", args, kw)
+
+    # ---- (c) K3 with sqp_rest=0 against K2 (route 'lanes', 1 SQP step) --
+    one = mpc.replace(sqp_iters=1)
+    cf, cl_ = (_team_candidates(dt, dm, carry[0], states.x, -1, params, one,
+                                strat, route) for route in ("fused", "lanes"))
+    torch.cuda.synchronize()
+    agree = float((cf.conv == cl_.conv).float().mean())
+    both = cf.conv & cl_.conv
+    d = (cf.U - cl_.U).abs()
+    off = both & (d > X_ATOL + X_RTOL * cl_.U.abs()).any(-1)
+    nb = int(both.sum())
+    print(f"phase6 (c) K3 (sqp_rest=0) vs K2 (route 'lanes', 1 SQP "
+          f"iteration) at step {SNAP_STEPS[0]}: flags agree {agree:.5f}, "
+          f"both converged {nb}: max|dU| {float(d[both].max()):.3g}, "
+          f"{int(off.sum())} outside {X_ATOL}/{X_RTOL}", flush=True)
+    check(agree >= 0.99, f"(c) K3 and K2 flags agree on {agree}")
+    check(int(off.sum()) <= SQP_OFF_MAX * nb, "(c) K3 (sqp_rest=0) "
+          "disagrees with K2")
+
+    # ---- (d) the policy on K3 against the policy on the plain version ---
+    readings = [hold_dmpc_policy(rt, f"(d) step {k}: K3 vs plain on the "
+                                 f"card", policy, params, *snaps[k], "plain")
+                for k in DMPC_SNAPS]
+    first = lambda a: a[:N_CPU].contiguous()
+    readings += [hold_dmpc_policy(rt, f"(d) step {k}, {N_CPU} games: card vs "
+                                  f"CPU", policy, params,
+                                  *(_tree_map(first, a) for a in snaps[k]),
+                                  "cpu")
+                 for k in SNAP_STEPS]
+    print(f"phase6 (d) games outside {X_ATOL}/{X_RTOL}, share of those held:"
+          f" {[round(off / n_ok, 5) for _, _, off, n_ok in readings]}",
+          flush=True)
+    for tag, aside, off, n_ok in readings:
+        check(aside <= SET_ASIDE_MAX, f"{tag}: {aside:.4f} of the games set "
+              f"aside")
+        check(off <= policy_off_limit(n_ok), f"{tag}: policy differs in "
+              f"{off} of {n_ok} games (limit {policy_off_limit(n_ok):.2f})")
+
+    # ---- (e) K3's time per launch at the production shape ---------------
+    run = lambda: sqp_lanes.dmpc_sqp_stats(*args, **kw)
+    for _ in range(2):
+        run()
+    ms, _ = cuda_ms(run, reps=10)
+    plain_ms, _ = cuda_ms(lambda: sqp_lanes._plain_stats(*args, **kw),
+                          reps=2)
+    bound, by = k3_bound_ms(args, kw)
+    P, n1 = args[1].shape
+    m_own = (2 + kw["n_obs"]) * kw["N"]
+    print(f"phase6 (e) K3 (P={P}, n1={n1}, m_own={m_own}): {ms:.4f} ms per "
+          f"launch; plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by})  "
+          f"[{card}]", flush=True)
+    return {
+        "name": f"K3 dmpc_sqp, fused DMPC SQP (n1={n1}, m_own={m_own}, "
+                f"{P} per launch)",
+        "route": "cuda",
+        "source": "robogame_tpu_torch/csrc/dmpc_sqp.cu",
+        "replaces": "robogame_tpu/ops/sqp_pallas.py:482",
+        "launches": launches["K3"][(n1, m_own)],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -473,7 +846,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase0 build K1 + K2: {build_s:.2f} s (nvcc seconds "
+    print(f"phase0 build K1, K2, K3: {build_s:.2f} s (nvcc seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
 
     P1 = rt.SimParams(engine="pallas_exact", two_phase=False)
@@ -704,7 +1077,8 @@ def main() -> int:
           f"{pl_exp_ms:.1f} + {pl_res_ms:.1f} ms; bound {t_bytes:.4f} ms "
           f"bytes / {t_ops:.4f} ms ops  [{card}]", flush=True)
     k2 = closed_loop_and_k2(rt, dev, card)
-    print(json.dumps({"kernels": [kern, *k2]}))
+    k3 = dmpc_phase(rt, dev, card)
+    print(json.dumps({"kernels": [kern, *k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
 source and the flags), and bound with ``ctypes``:
 
 * K1, ``csrc/exact_step.cu``: the event-order-exact control step;
-* K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve.
+* K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve;
+* K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve.
 
 :func:`build_all` starts one ``nvcc`` per source that is not built yet, all
 at once.  Nothing here runs while the module is imported, so the CPU tests
@@ -17,7 +18,8 @@ operation the plain PyTorch versions do (true division, correctly rounded
 square root, no contraction into FMAs).
 
 Launch counters, added to only by the launch paths below: ``launches``
-holds K1's per mode, ``qp_launches`` K2's per (n, m) shape.
+holds K1's per mode, ``qp_launches`` K2's per (n, m) shape and
+``sqp_launches`` K3's per (n1, m_own) shape.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
-           "qp_admm": _PKG / "csrc" / "qp_admm.cu"}
+           "qp_admm": _PKG / "csrc" / "qp_admm.cu",
+           "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu"}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -43,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
 qp_launches: dict = {}
+sqp_launches: dict = {}
 build_seconds: dict = {}
 _libs: dict = {}
 
@@ -51,6 +55,7 @@ def reset_launches() -> None:
     for mode in launches:
         launches[mode] = 0
     qp_launches.clear()
+    sqp_launches.clear()
 
 
 def _nvcc() -> str:
@@ -106,17 +111,24 @@ def build(name: str) -> Path:
     return build_all([name])[name]
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each library's C entry point and its arguments (pointers and the stream
+# as void*, so that ctypes passes them as 64-bit values)
+_SIGNATURES = {
+    "exact_step": ("rg_exact_step", [_P] * 13 + [_I] * 4 + [_P]),
+    "qp_admm": ("rg_qp_admm", [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P]),
+    "dmpc_sqp": ("rg_dmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
+}
+
+
 def _library(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "exact_step":
-            lib.rg_exact_step.argtypes = [p] * 13 + [i, i, i, i, p]
-            lib.rg_exact_step.restype = i
-        else:
-            lib.rg_qp_admm.argtypes = [p] * 7 + [i] * 6 + [f] * 5 + [p]
-            lib.rg_qp_admm.restype = i
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -203,4 +215,40 @@ def qp_admm(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,
         raise RuntimeError(f"K2 launch failed: cudaError {err} "
                            f"(P={P}, n={n}, m={m}, group={group})")
     qp_launches[(n, m)] = qp_launches.get((n, m), 0) + 1
+    return x, stats
+
+
+def dmpc_sqp(H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *, N: int,
+             n_obs: int, n_seg0: int, it0: int, sqp_rest: int, it_rest: int,
+             rho: float, sigma: float, alpha: float, tol: float, d2: float):
+    """Launch K3 over B = g.shape[0] DMPC SQPs on the current stream (the
+    layouts of ``ops/sqp_lanes.py``).  Returns x (B, n1) and stats (B, 5) =
+    [converged, prim_res, dual_res, p_sc, d_sc]."""
+    dev = g.device
+    B, n1 = g.shape
+    m_own = 2 * N + n_obs * N
+    for name, t, shape in (("H", H, (B, n1, n1)), ("g", g, (B, n1)),
+                           ("sg", sg, (B, N, 2, n1)), ("p0", p0, (B, N, 2)),
+                           ("obs", obs, (B, n_obs, 2)),
+                           ("lo_arena", lo_arena, (B, 2 * N)),
+                           ("hi_arena", hi_arena, (B, 2 * N)),
+                           ("lx", lx, (B, n1)), ("ux", ux, (B, n1)),
+                           ("U0", U0, (B, n1))):
+        _check(name, t, shape, dev)
+    x = torch.empty((B, n1), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, 5), dtype=torch.float32, device=dev)
+    if B == 0:
+        return x, stats
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("dmpc_sqp").rg_dmpc_sqp(
+            _ptr(H), _ptr(g), _ptr(sg), _ptr(p0), _ptr(obs), _ptr(lo_arena),
+            _ptr(hi_arena), _ptr(lx), _ptr(ux), _ptr(U0), _ptr(x),
+            _ptr(stats), B, N, n_obs, int(n_seg0), int(it0), int(sqp_rest),
+            int(it_rest), float(rho), float(sigma), float(alpha), float(tol),
+            float(10.0 * tol), float(d2), float(1.0 / n1), stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err} "
+                           f"(B={B}, N={N}, n_obs={n_obs})")
+    sqp_launches[(n1, m_own)] = sqp_launches.get((n1, m_own), 0) + 1
     return x, stats

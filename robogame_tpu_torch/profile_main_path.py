@@ -1,6 +1,7 @@
 """Where a main path's time goes on the card.
 
-    python -m robogame_tpu_torch.profile_main_path [--path bench|classical_cbf]
+    python -m robogame_tpu_torch.profile_main_path \
+        [--path bench|classical_cbf|dmpc]
 
 ``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
 schedules held 10 steps, winning_score=4, two-phase exact step) for 200
@@ -10,11 +11,14 @@ control steps, then 40 more traced.
 CBF filter (512 games, randomized puck starts) for 100 control steps, then
 20 more traced.
 
-Both trace with ``torch.profiler`` and print the wall time per step, the
+``dmpc`` (slice 3): the DMPC vs DMPC matchup (512 games, randomized puck
+starts, ``MpcParams()``) for 100 control steps, then 20 more traced.
+
+Each traces with ``torch.profiler`` and prints the wall time per step, the
 device time per kernel name, the device's busy share of the traced wall
 time, and a split into K1, K2 (skills and CBF: the kernel's template
 argument is its rows per lane, 2 for the skills' 60 rows and 1 for the
-CBF's 20) and the glue kernels.  Needs a CUDA device.
+CBF's 20), K3 and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ B_CL, WARM_CL, STEPS_CL = 512, 100, 20
 # kernel-name fragments of the split
 GROUPS = (("K1 exact_step", "exact_step_kernel"),
           ("K2 skills (n=30, m=60)", "qp_admm_kernel<2>"),
-          ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"))
+          ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"),
+          ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"))
 
 
 def _bench(rt, mc, dev):
@@ -62,10 +67,23 @@ def _classical_cbf(rt, mc, dev):
     return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
 
 
+def _dmpc(rt, mc, dev):
+    from robogame_tpu_torch.agents.dmpc_team import dmpc_matchup
+    p = rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+    policy, ps = dmpc_matchup(p, B_CL, "dmpc", device=dev)
+    s = mc._initial_states(p, rt.McParams(
+        num_runs=B_CL, randomize_x0=True, x0_pos_range=(1.0, 0.5),
+        x0_vel_range=2.0), device=dev)
+    s, ps = mc._run_batch(s, p, WARM_CL, policy, ps, device=dev)
+    return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
+
+
+PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("bench", "classical_cbf"),
-                    default="bench")
+    ap.add_argument("--path", choices=tuple(PATHS), default="bench")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
@@ -79,8 +97,7 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    setup = _bench if args.path == "bench" else _classical_cbf
-    p, policy, s, ps, n_games, warm, steps = setup(rt, mc, dev)
+    p, policy, s, ps, n_games, warm, steps = PATHS[args.path](rt, mc, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

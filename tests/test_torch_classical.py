@@ -32,7 +32,7 @@ import robogame_tpu_torch as rt
 from robogame_tpu_torch.agents import classical as tcl
 from robogame_tpu_torch.control import trajopt as ttraj
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 jmc = importlib.import_module("robogame_tpu.parallel.monte_carlo")
 tmc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")

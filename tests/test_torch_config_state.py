@@ -22,7 +22,7 @@ import robogame_tpu_torch as rt
 import robogame_tpu_torch.config as tcfg
 from robogame_tpu_torch.physics import dynamics as tdyn
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

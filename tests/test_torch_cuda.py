@@ -1,15 +1,15 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions, on the
-card.
+"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions, on
+the card.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
 Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-Both kernels are built with -fmad=false and IEEE division and square
+The kernels are built with -fmad=false and IEEE division and square
 root.  K1 runs its plain version's f32 operations in the same order, so
 the two are held to be equal bitwise, which also covers chaotic grinding
-games; K2 is held by tolerance (see its section below)."""
+games; K2 and K3 are held by tolerance (see their sections below)."""
 
 import importlib
 
@@ -188,3 +188,96 @@ def test_classical_cbf_policy_on_the_card_equals_the_cpu(dev):
         assert torch.equal(gb.curr_play.cpu(), ps[1].curr_play)
         assert bool(((gu.cpu() - u).abs() <= 2e-3 + 1e-3 * u.abs()).all())
         s = rt.step_batch(s, u, p, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused DMPC SQP kernel against its plain version and against K2
+# ---------------------------------------------------------------------------
+#
+# Held by tolerance, as K2: flags agree on >= 99% of the candidates, and
+# where both converged x lies within 2e-3 + 1e-2 |x| on all but 2% of them
+# (a stopped ADMM iterate moves along the flat directions of H, rank 4
+# plus 0.02 I, and the nonconvex relinearization carries that on: the
+# plain version in f32 lies outside that tolerance of its f64 run on about
+# 0.5% of them, chip_smoke.py phase 6 (b)).
+
+def _dmpc_candidates(dev, Bq, N, seed=0, t_grid=8):
+    """Random DMPC instances (arena-scale positions, targets and
+    obstacles) through the controller's candidate grid and closed-form QP
+    data: the fused solver's inputs for Bq x t_grid candidates."""
+    from robogame_tpu_torch.control import dmpc as dm
+    rng = np.random.default_rng(seed)
+
+    def pos(*shape):
+        return np.stack([rng.uniform(-4.5, 4.5, shape),
+                         rng.uniform(-2.2, 2.2, shape)], -1)
+
+    x0 = np.concatenate([pos(Bq), rng.normal(size=(Bq, 2))], 1)
+    xd = np.concatenate([pos(Bq), 3.0 * rng.normal(size=(Bq, 2))], 1)
+    obs = pos(Bq, 3)
+    mpc = rt.MpcParams(N=N, t_grid=t_grid)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    st = dm.initial_dmpc_state(mpc, device=dev, batch=(Bq,))
+    return dm, mpc, (st, f(x0), f(xd), f(obs))
+
+
+def _capture_fused(dm, mpc, inp):
+    from robogame_tpu_torch.ops import sqp_lanes
+    seen = []
+    kernel_route = sqp_lanes.dmpc_sqp_stats
+
+    def hook(*args, **kw):
+        seen.append((args, kw))
+        return kernel_route(*args, **kw)
+
+    sqp_lanes.dmpc_sqp_stats = hook
+    try:
+        dm.candidates(*inp, rt.SimParams(), mpc, "fused")
+    finally:
+        sqp_lanes.dmpc_sqp_stats = kernel_route
+    return seen[0]
+
+
+def test_k3_agrees_with_plain(dev):
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.ops import sqp_lanes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dm, mpc, inp = _dmpc_candidates(dev, 256, 20)
+    args, kw = _capture_fused(dm, mpc, inp)
+    before = kernels.sqp_launches.get((40, 100), 0)
+    xk, sk = sqp_lanes.dmpc_sqp_stats(*args, **kw)
+    assert kernels.sqp_launches[(40, 100)] == before + 1
+    xp, sp = sqp_lanes._plain_stats(*args, **kw)
+    torch.cuda.synchronize()
+    ck, cp = sk[:, 0] > 0.5, sp[:, 0] > 0.5
+    assert float((ck == cp).float().mean()) >= 0.99
+    both = ck & cp
+    off = both & ((xk - xp).abs() > 2e-3 + 1e-2 * xp.abs()).any(-1)
+    assert int(off.sum()) <= 0.02 * int(both.sum())
+    assert bool(torch.isfinite(xk).all()) and float(ck.float().mean()) > 0.5
+
+
+def test_k3_one_sqp_iteration_agrees_with_k2(dev):
+    """sqp_rest = 0: the fused solve is one cold scaled QP solve, the same
+    algorithm as K2 on the controller's 'lanes' route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dm, mpc, inp = _dmpc_candidates(dev, 256, 20, seed=1)
+    one = mpc.replace(sqp_iters=1)
+    cf = dm.candidates(*inp, rt.SimParams(), one, "fused")
+    cl = dm.candidates(*inp, rt.SimParams(), one, "lanes")
+    torch.cuda.synchronize()
+    assert float((cf.conv == cl.conv).float().mean()) >= 0.99
+    both = cf.conv & cl.conv
+    off = both & ((cf.U - cl.U).abs() > 2e-3 + 1e-2 * cl.U.abs()).any(-1)
+    assert int(off.sum()) <= 0.02 * int(both.sum())
+
+
+def test_k3_refuses_unsupported_shapes(dev):
+    from robogame_tpu_torch.ops import sqp_lanes
+    for N in (6, 36):              # n1 = 12 (n1 % 8 != 0), n1 = 72 (> 64)
+        dm, mpc, inp = _dmpc_candidates(dev, 2, N, t_grid=2)
+        with pytest.raises(ValueError, match="K3 supports"):
+            dm.candidates(*inp, rt.SimParams(), mpc, "fused")
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        dm.candidates(*inp, rt.SimParams(), mpc, "plain")
+    assert sqp_lanes.MAX_N1 == 64

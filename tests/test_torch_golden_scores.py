@@ -17,7 +17,7 @@ from robogame_tpu.state import initial_state as j_initial_state
 
 import robogame_tpu_torch as rt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

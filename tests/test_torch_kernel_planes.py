@@ -23,7 +23,7 @@ from robogame_tpu.state import initial_state as j_initial_state
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.physics import exact_step as tex
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402

@@ -16,7 +16,7 @@ from robogame_tpu.config import SimParams as JParams
 
 import robogame_tpu_torch as rt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # the parallel packages export a function of the module's name
 jmc = importlib.import_module("robogame_tpu.parallel.monte_carlo")

@@ -29,7 +29,7 @@ from robogame_tpu_torch.control import trajopt as tt
 from robogame_tpu_torch.models import lqsys as tlq
 from robogame_tpu_torch.ops.qp_lanes import solve_qp_lanes
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def make_qps(B, n, m, seed=0, n_eq=0, cond=10.0):

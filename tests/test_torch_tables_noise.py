@@ -16,7 +16,7 @@ from robogame_tpu_torch.config import SimParams
 from robogame_tpu_torch.physics import exact_step as tex
 from robogame_tpu_torch.physics import sweep as tsw
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CONFIGS = [dict(), dict(dt=0.02, grid_points=20, tau_player=0.3,
                         tau_puck=1.0)]

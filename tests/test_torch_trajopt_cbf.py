@@ -26,7 +26,7 @@ import robogame_tpu_torch as rt
 from robogame_tpu_torch.control import cbf as tcbf
 from robogame_tpu_torch.control import trajopt as ttraj
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 JP = JParams(dtype="float32")
 TP = rt.SimParams(dtype="float32")
@@ -116,11 +116,15 @@ def test_t_grid_and_candidate_tables_match_jax():
     np.testing.assert_array_equal(grid.Ts.numpy(), Ts.astype(np.float32))
     sel, plo, phi_hi = jtraj._arena_rows(JP, ttraj.N_KNOTS, jnp.float32)
     N = ttraj.N_KNOTS
-    for k, h in enumerate(Ts / N):
-        A, Bm = jlq.exact_ab(float(h), JP.tau_player, jnp.float32)
+    @jax.jit
+    def tables(h):
+        A, Bm = jlq.exact_ab(h, JP.tau_player, jnp.float32)
         phi, gam = jlq.condense(A, Bm, N)
         gN = gam[4 * (N - 1):]
-        H = 2.0 * (1e-3 * jnp.eye(2 * N) + 10.0 * gN.T @ gN)
+        return 2.0 * (1e-3 * jnp.eye(2 * N) + 10.0 * gN.T @ gN), phi, gam
+
+    for k, h in enumerate(Ts / N):
+        H, phi, gam = tables(np.float32(h))
         np.testing.assert_allclose(grid.H[k].numpy(), np.asarray(H),
                                    rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(grid.A[k, 2 * N:].numpy(),
@@ -161,8 +165,8 @@ def test_safe_control_batch_matches_jax(seed, B):
 
 def test_cbf_qp_pieces_match_jax():
     u, p, v = _cbf_games(2, 16)
-    ref = jax.vmap(lambda a, b, c: jcbf._build_qp(a, b, c, JP, JCbf()))(
-        *(jnp.asarray(x) for x in (u, p, v)))
+    ref = jax.jit(jax.vmap(lambda a, b, c: jcbf._build_qp(
+        a, b, c, JP, JCbf())))(*(jnp.asarray(x) for x in (u, p, v)))
     got = tcbf._build_qp(*(torch.from_numpy(x) for x in (u, p, v)), TP,
                          rt.CbfParams())
     for a, b in zip(got, ref):

@@ -16,10 +16,14 @@ import robogame_tpu_torch as rt
 from robogame_tpu_torch.parallel.monte_carlo import _initial_states
 from robogame_tpu_torch.physics import exact_step as tex
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched  # noqa: E402
+
+
+B_MAX = 64
+P1 = rt.SimParams(dtype="float32", engine="pallas_exact", two_phase=False)
 
 
 def _states(B):
@@ -28,20 +32,41 @@ def _states(B):
     return _initial_states(rt.SimParams(), mc, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def one_phase():
+    """The pre-ground states, the one-phase step's states 6 steps on, and
+    the schedules, per (family, pre) for B_MAX games.  A smaller case takes
+    the first B games: the same seeds and schedules (make_sched draws the
+    games in order), and games step independently, so the two corner cases
+    share one one-phase run."""
+    runs = {}
+
+    def get(family, pre, B):
+        if (family, pre) not in runs:
+            us = torch.from_numpy(make_sched(family, B_MAX, pre + 6, seed=5))
+            s = _states(B_MAX)
+            for k in range(pre):
+                s = rt.step_batch(s, us[k], P1, device="cpu")
+            s1 = s
+            for k in range(pre, pre + 6):
+                s1 = rt.step_batch(s1, us[k], P1, device="cpu")
+            runs[family, pre] = (s, s1, us)
+        s, s1, us = runs[family, pre]
+        first = lambda st: type(st)(*(a[:B] for a in st))
+        return first(s), first(s1), us[:, :B]
+
+    return get
+
+
 @pytest.mark.parametrize("B, frac, family, pre, path", [
     (32, 4, "corner", 24, "cover"),
     (64, 2, "corner", 24, "overflow"),
     (64, 2, "uniform", 20, "compact"),
 ])
-def test_twophase_bitwise_equals_one_phase(monkeypatch, B, frac, family, pre,
-                                           path):
-    p1 = rt.SimParams(dtype="float32", engine="pallas_exact",
-                      two_phase=False)
-    p2 = p1.replace(two_phase=True, phase1_iters=1, compact_frac=frac)
-    us = torch.from_numpy(make_sched(family, B, pre + 6, seed=5))
-    s = _states(B)
-    for k in range(pre):
-        s = rt.step_batch(s, us[k], p1, device="cpu")
+def test_twophase_bitwise_equals_one_phase(monkeypatch, one_phase, B, frac,
+                                           family, pre, path):
+    p2 = P1.replace(two_phase=True, phase1_iters=1, compact_frac=frac)
+    s, s1, us = one_phase(family, pre, B)
 
     resumes, pending = [], []
     call = tex._kernel_call
@@ -55,9 +80,8 @@ def test_twophase_bitwise_equals_one_phase(monkeypatch, B, frac, family, pre,
         return out
 
     monkeypatch.setattr(tex, "_kernel_call", spy)
-    s1 = s2 = s
+    s2 = s
     for k in range(pre, pre + 6):
-        s1 = rt.step_batch(s1, us[k], p1, device="cpu")
         s2 = rt.step_batch(s2, us[k], p2, device="cpu")
     for a, b in zip(s1, s2):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
