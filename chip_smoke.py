@@ -6,8 +6,9 @@
 Phases, each failing loudly (nothing here catches an error):
 
 0. the card's name and power limit (nvidia-smi), then the builds of the
-   hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu)
-   and K3 (csrc/dmpc_sqp.cu) from this checkout, one nvcc each, started
+   hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu),
+   K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu) and K5
+   (csrc/qp_joint.cu) from this checkout, one nvcc each, started
    together;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
@@ -50,10 +51,24 @@ Phases, each failing loudly (nothing here catches an error):
    candidates; (d) the policy on K3 against the policy on the plain
    version at steps 50, 100, ..., 350, and 64 games on the card against
    the CPU at steps 100 and 200;
-   (e) K3's time per launch beside its bound and the plain time.
+   (e) K3's time per launch beside its bound and the plain time;
+7. slice 4's main path: (a) the cmpc_vs_cmpc and dmpc_vs_cmpc matchups
+   (512 games, 400 control steps each) through ``monte_carlo``, each timed
+   after a warm-up with its launch counts (K4: one launch per CMPC team
+   and step, 4096 joint SQPs each; K3 for the DMPC team); DMPC must
+   outscore CMPC in dmpc_vs_cmpc.  From the states of step 100 of
+   cmpc_vs_cmpc: (b) K4 against its plain version on team A's 4096
+   candidate SQPs (and both against the plain version in f64); (c) K4
+   with one SQP iteration against K5 (the controller's 'joint' route), K5
+   against its plain version (and f64) and against the dense ``solve_qp``
+   on the assembled problems; (d) the policy on K4 against the policy on
+   the plain version at steps 50, 100, ..., 350, and 64 games on the card
+   against the CPU at step 100; (e) three control steps of cmpc_vs_cmpc on
+   route 'joint' (6 K5 launches a team-step), timed; (f) K4's and K5's
+   times per launch beside their bounds and the plain times.
 
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
-K2 at the skills shape, K2 at the CBF shape, K3); the last line is
+K2 at the skills shape, K2 at the CBF shape, K3, K4, K5); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 1 before printing any result.
 """
@@ -325,7 +340,7 @@ def matchup_params(rt):
 def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
     """One 512-game matchup of N_STEPS steps through monte_carlo after a
     10-step warm-up; returns (params, snapshots {step: (carry, states)} at
-    the steps ``snap``, launches {"K1", "K2", "K3"} of the run,
+    the steps ``snap``, launches {"K1", ..., "K5"} of the run,
     aggregate)."""
     params = matchup_params(rt)
     mc = rt.McParams(num_runs=B_CL, T=round(N_STEPS * params.dt, 9),
@@ -352,8 +367,11 @@ def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
     scores = res.scores.cpu()
     wall = time.perf_counter() - t0
     launches = {"K1": dict(kernels.launches), "K2": dict(kernels.qp_launches),
-                "K3": dict(kernels.sqp_launches)}
+                "K3": dict(kernels.sqp_launches),
+                "K4": dict(kernels.cmpc_launches),
+                "K5": dict(kernels.joint_launches)}
     agg = rt.aggregate(res)
+    agg["draws"] = agg["games"] - agg["wins_a"] - agg["wins_b"]
     print(f"{name}: {B_CL} games x {step[0]} steps in {wall:.3f} s wall "
           f"({ev0.elapsed_time(ev1):.1f} ms between CUDA events): "
           f"{B_CL / wall:.3f} games/s, {B_CL * step[0] / wall:.1f} "
@@ -532,25 +550,28 @@ N_CPU = 64              # games of the DMPC policy held against the CPU
 
 
 @contextlib.contextmanager
-def sqp_hook(mode, seen):
-    """Record the inputs of every fused DMPC solve of the controllers in
-    ``seen`` and run it on K3 (``mode='capture'``) or on K3's plain version
-    on the tensors' own device (``mode='plain'``)."""
+def sqp_hook(mode, seen, name="dmpc_sqp_stats"):
+    """Record the inputs of every fused solve of the controllers through
+    ``ops/sqp_lanes.<name>`` (DMPC's ``dmpc_sqp_stats``, on K3, or CMPC's
+    ``cmpc_sqp_stats``, on K4) in ``seen`` and run it on its kernel
+    (``mode='capture'``) or on the kernel's plain version on the tensors'
+    own device (``mode='plain'``)."""
     from robogame_tpu_torch.ops import sqp_lanes
-    kernel_route = sqp_lanes.dmpc_sqp_stats
+    kernel_route = getattr(sqp_lanes, name)
+    plain_route = {"dmpc_sqp_stats": sqp_lanes._plain_stats,
+                   "cmpc_sqp_stats": sqp_lanes._cmpc_plain_stats}[name]
 
     def hook(*args, **kw):
         seen.append((args, kw))
         if mode == "capture":
             return kernel_route(*args, **kw)
-        return sqp_lanes._plain_stats(*(a.float().contiguous()
-                                        for a in args), **kw)
+        return plain_route(*(a.float().contiguous() for a in args), **kw)
 
-    sqp_lanes.dmpc_sqp_stats = hook
+    setattr(sqp_lanes, name, hook)
     try:
         yield
     finally:
-        sqp_lanes.dmpc_sqp_stats = kernel_route
+        setattr(sqp_lanes, name, kernel_route)
 
 
 def k3_flops(n1, m, M, N, n_seg0, it0, sqp_rest, it_rest):
@@ -586,18 +607,29 @@ def k3_bound_ms(args, kw):
         "operations"
 
 
-def k3_vs_plain(tag, args, kw):
-    """K3 and its plain version on the same SQPs.  Held: flags agree on >=
-    99%; where both converged, the QP objectives 1/2 x'Hx + g'x agree
-    within 2e-2 (1 + |f|), x within X_ATOL/X_RTOL on all but SQP_OFF_MAX
-    of the SQPs, and K3 lies no further from the plain version in f64 than
-    the plain version in f32 does (at most twice its count of SQPs outside
+def _qp_objective(H, g, x):
+    """1/2 x'Hx + g'x per problem in f64; H (B, n, n) or the blocks of a
+    block-diagonal H (B, 2, n1, n1)."""
+    H, g, x = H.double(), g.double(), x.double()
+    xb = x.reshape(H.shape[:-1])
+    quad = torch.einsum("b...i,b...ij,b...j->b", xb, H, xb)
+    return 0.5 * quad + (g * x).sum(-1)
+
+
+def sqp_vs_plain(tag, name, kernel, plain, args, objective):
+    """Kernel ``name`` (K3, K4 or K5) and its plain version on the same
+    problems: ``kernel(args)`` and ``plain(args)`` give (x, stats (B, 5)),
+    ``objective(args, x)`` the QP objective.  Held: flags agree on >= 99%;
+    where both converged, the objectives agree within 2e-2 (1 + |f|), x
+    within X_ATOL/X_RTOL on all but SQP_OFF_MAX of the problems, and the
+    kernel lies no further from the plain version in f64 than the plain
+    version in f32 does (at most twice its count of problems outside
     X_ATOL/X_RTOL, plus 0.1%).  Reported: how many flag disagreements are
     knife-edges.  Returns max |dx| where both converged."""
     from robogame_tpu_torch.ops import sqp_lanes
-    xk, sk = sqp_lanes.dmpc_sqp_stats(*args, **kw)
-    xp, sp = sqp_lanes._plain_stats(*args, **kw)
-    x64, s64 = sqp_lanes._plain_stats(*(a.double() for a in args), **kw)
+    xk, sk = kernel(args)
+    xp, sp = plain(args)
+    x64, s64 = plain(tuple(a.double() for a in args))
     torch.cuda.synchronize()
     ck, cp, c64 = sk[:, 0] > 0.5, sp[:, 0] > 0.5, s64[:, 0] > 0.5
     agree = float((ck == cp).float().mean())
@@ -606,9 +638,7 @@ def k3_vs_plain(tag, args, kw):
     dx = (xk - xp).abs()
     err = float(dx[both].max()) if nb else 0.0
     off = both & (dx > X_ATOL + X_RTOL * xp.abs()).any(-1)
-    H, g = args[0].double(), args[1].double()
-    fk, fp = (0.5 * torch.einsum("bi,bij,bj->b", x, H, x) + (g * x).sum(-1)
-              for x in (xk.double(), xp.double()))
+    fk, fp = (objective(args, x) for x in (xk, xp))
     df = ((fk - fp).abs() / (1 + fp.abs()))[both]
     dfmax = float(df.max()) if nb else 0.0
     dis = ck != cp
@@ -619,23 +649,34 @@ def k3_vs_plain(tag, args, kw):
     d64 = [(x.double() - x64).abs() for x in (xk, xp)]
     off64 = [int((all3 & (d > X_ATOL + X_RTOL * x64.abs()).any(-1)).sum())
              for d in d64]
-    d64 = [float(d[all3].max()) for d in d64]
-    print(f"phase6 {tag}: {xk.shape[0]} SQPs: flags agree {agree:.5f} "
+    d64 = [float(d[all3].max()) if n3 else 0.0 for d in d64]
+    print(f"{tag}: {xk.shape[0]} problems: flags agree {agree:.5f} "
           f"({int(dis.sum())} differ, {int(edge.sum())} of them within "
-          f"{FLAG_EDGE:.0%} of the threshold), converged K3 "
+          f"{FLAG_EDGE:.0%} of the threshold), converged {name} "
           f"{float(ck.float().mean()):.4f} plain {float(cp.float().mean()):.4f}"
           f" f64 {float(c64.float().mean()):.4f}; both converged {nb}: max|dx|"
           f" {err:.3g}, {int(off.sum())} outside {X_ATOL}/{X_RTOL}, max "
           f"|df|/(1+|f|) {dfmax:.3g}; against f64 ({n3} all converged) "
-          f"outside {X_ATOL}/{X_RTOL}: K3 {off64[0]}, plain f32 {off64[1]}; "
-          f"max|dx| K3 {d64[0]:.3g}, plain f32 {d64[1]:.3g}", flush=True)
-    check(agree >= 0.99, f"{tag}: K3 and plain flags agree on {agree}")
-    check(dfmax <= 2e-2, f"{tag}: K3's objective differs ({dfmax})")
-    check(int(off.sum()) <= SQP_OFF_MAX * nb, f"{tag}: K3 disagrees with "
-          f"its plain version ({int(off.sum())} SQPs, max {err})")
-    check(off64[0] <= 2 * off64[1] + n3 // 1000, f"{tag}: K3 lies further "
-          f"from the f64 solution than the plain f32 version ({off64})")
+          f"outside {X_ATOL}/{X_RTOL}: {name} {off64[0]}, plain f32 "
+          f"{off64[1]}; max|dx| {name} {d64[0]:.3g}, plain f32 {d64[1]:.3g}",
+          flush=True)
+    check(agree >= 0.99, f"{tag}: {name} and plain flags agree on {agree}")
+    check(dfmax <= 2e-2, f"{tag}: {name}'s objective differs ({dfmax})")
+    check(int(off.sum()) <= SQP_OFF_MAX * nb, f"{tag}: {name} disagrees with "
+          f"its plain version ({int(off.sum())} problems, max {err})")
+    check(off64[0] <= 2 * off64[1] + n3 // 1000, f"{tag}: {name} lies "
+          f"further from the f64 solution than the plain f32 version "
+          f"({off64})")
     return err
+
+
+def k3_vs_plain(tag, args, kw):
+    """K3 and its plain version on the same SQPs (``sqp_vs_plain``)."""
+    from robogame_tpu_torch.ops import sqp_lanes
+    return sqp_vs_plain(
+        f"phase6 {tag}", "K3", lambda a: sqp_lanes.dmpc_sqp_stats(*a, **kw),
+        lambda a: sqp_lanes._plain_stats(*a, **kw), args,
+        lambda a, x: _qp_objective(a[0], a[1], x))
 
 
 def _team_candidates(dt, dm, ts, x, field, params, mpc, strat, route="fused"):
@@ -645,50 +686,47 @@ def _team_candidates(dt, dm, ts, x, field, params, mpc, strat, route="fused"):
                          route)
 
 
-def hold_dmpc_policy(rt, tag, policy, params, carry, states, route):
-    """The DMPC matchup's policy on K3 against the same policy on
-    ``route`` ('plain': K3's plain version on the card, 'cpu': on the
-    CPU) from one state.  A game is set aside where an agent's winning
+def hold_mpc_policy(rt, tag, policy, params, carry, states, route, teams):
+    """An MPC matchup's policy on its kernels (K3 for DMPC teams, K4 for CMPC
+    teams) against the same policy on ``route`` ('plain': the kernels'
+    plain versions on the card, 'cpu': on the CPU) from one state.
+    ``teams`` lists (carry index, candidates(team carry, x)) of the MPC
+    teams.  A game is set aside where a team's (or an agent's) winning
     candidate differs between the two and the difference is explained: the
     best cost within NEAR_TIE of another step size's on either side
     (``runner_up_gap``), a flag within FLAG_EDGE of its threshold, or a
-    flag that differs between the sides.  At most SET_ASIDE_MAX of the
-    games may be set aside; in the others every winner must be the same
-    and the new warm states and controls agree within X_ATOL/X_RTOL in all
-    but ``policy_off_limit`` of the games.  The plain route must make one
-    solve per DMPC team and call, and launch no K3.
-    Prints and returns (tag, share set aside, games outside, games held);
-    the caller holds them to the limits."""
+    flag that differs between the sides.  In the other games every winner
+    must be the same and the new warm states and controls agree within
+    X_ATOL/X_RTOL; the caller holds the counts to its limits.  The plain
+    route must make one solve per MPC team and call, and launch no K3 or
+    K4.  Prints and returns (tag, share set aside, games outside, games
+    held)."""
     from robogame_tpu_torch import kernels
-    from robogame_tpu_torch.agents import dmpc_team as dt
     from robogame_tpu_torch.control import dmpc as dm
-    mpc, strat = rt.MpcParams(), rt.StrategyParams()
     B = states.x.shape[0]
 
     def other(fn, n_solves):
         if route == "cpu":
             cpu = lambda a: a.cpu()
             return fn(_tree_map(cpu, carry), _tree_map(cpu, states))
-        calls, before = [], dict(kernels.sqp_launches)
-        with sqp_hook("plain", calls):
+        calls = []
+        before = (dict(kernels.sqp_launches), dict(kernels.cmpc_launches))
+        with sqp_hook("plain", calls), sqp_hook("plain", calls,
+                                                "cmpc_sqp_stats"):
             out = fn(carry, states)
-        check(len(calls) == n_solves and kernels.sqp_launches == before,
+        after = (dict(kernels.sqp_launches), dict(kernels.cmpc_launches))
+        check(len(calls) == n_solves and after == before,
               f"{tag}: the plain route made {len(calls)} solves (expected "
-              f"{n_solves}) and K3 launches went {before} -> "
-              f"{kernels.sqp_launches}")
+              f"{n_solves}) and K3, K4 launches went {before} -> {after}")
         return out
 
     (ka, kb), uk = policy(carry, states)
-    (pa, pb), up = other(policy, sum(c is not None for c in carry))
+    (pa, pb), up = other(policy, len(teams))
     aside = torch.zeros(B, dtype=torch.bool)
     odd = torch.zeros(B, dtype=torch.bool)
-    for field, i in ((-1, 0), (1, 1)):
-        if carry[i] is None:
-            continue
-        ck = _team_candidates(dt, dm, carry[i], states.x, field, params,
-                              mpc, strat)
-        cp = other(lambda c, s: _team_candidates(dt, dm, c[i], s.x, field,
-                                                 params, mpc, strat), 1)
+    for i, cands in teams:
+        ck = cands(carry[i], states.x)
+        cp = other(lambda c, s: cands(c[i], s.x), 1)
         ck, cp = (type(c)(*(a.cpu() for a in c)) for c in (ck, cp))
         differ = ck.cost.argmin(1) != cp.cost.argmin(1)
         explained = ((dm.runner_up_gap(ck) <= NEAR_TIE) |
@@ -696,8 +734,8 @@ def hold_dmpc_policy(rt, tag, policy, params, carry, states, route):
                      ((ck.margin - 1).abs() <= FLAG_EDGE).any(1) |
                      ((cp.margin - 1).abs() <= FLAG_EDGE).any(1) |
                      (ck.conv != cp.conv).any(1))
-        aside |= (differ & explained).reshape(B, 2).any(1)
-        odd |= (differ & ~explained).reshape(B, 2).any(1)
+        aside |= (differ & explained).reshape(B, -1).any(1)
+        odd |= (differ & ~explained).reshape(B, -1).any(1)
     ok = ~aside
     err = 0.0
     off = odd.clone()
@@ -711,12 +749,25 @@ def hold_dmpc_policy(rt, tag, policy, params, carry, states, route):
         off |= (d > X_ATOL + X_RTOL * b.abs().reshape(B, -1)).any(-1)
     off &= ok
     n_ok = int(ok.sum())
-    print(f"phase6 {tag}: {B} games, {int(aside.sum())} set aside "
+    print(f"{tag}: {B} games, {int(aside.sum())} set aside "
           f"({float(aside.float().mean()):.4f}: a winner differs at a "
           f"near-tie or a flag edge); over the other {n_ok} max|d| "
           f"{err:.3g}, {int(off.sum())} games outside {X_ATOL}/{X_RTOL} "
           f"({int((odd & ok).sum())} with an unexplained winner)", flush=True)
     return tag, float(aside.float().mean()), int(off.sum()), n_ok
+
+
+def hold_dmpc_policy(rt, tag, policy, params, carry, states, route):
+    """``hold_mpc_policy`` for a DMPC matchup (the DMPC teams of
+    ``carry``)."""
+    from robogame_tpu_torch.agents import dmpc_team as dt
+    from robogame_tpu_torch.control import dmpc as dm
+    mpc, strat = rt.MpcParams(), rt.StrategyParams()
+    teams = [(i, lambda ts, x, f=field: _team_candidates(
+        dt, dm, ts, x, f, params, mpc, strat))
+        for field, i in ((-1, 0), (1, 1)) if carry[i] is not None]
+    return hold_mpc_policy(rt, f"phase6 {tag}", policy, params, carry,
+                           states, route, teams)
 
 
 def dmpc_phase(rt, dev, card):
@@ -824,6 +875,327 @@ def dmpc_phase(rt, dev, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 7: CMPC on K4 (and K5 on the "joint" route)
+# ---------------------------------------------------------------------------
+
+# the share of the held games (both CMPC teams' warm states and controls)
+# outside X_ATOL/X_RTOL, pooled over the DMPC_SNAPS states of the
+# cmpc_vs_cmpc run recorded in PERF.md (29 of 3,582 games); a policy check
+# fails above its binomial 3-sigma upper bound for the check's number of
+# games
+CMPC_POLICY_OFF_RATE = 29 / 3582
+N_CPU_CMPC = 64         # games of the CMPC policy held against the CPU
+N_JOINT = 3             # control steps of cmpc_vs_cmpc on route 'joint'
+
+
+def cmpc_policy_off_limit(n):
+    p = CMPC_POLICY_OFF_RATE
+    return n * p + 3.0 * math.sqrt(n * p * (1.0 - p))
+
+
+@contextlib.contextmanager
+def capture(module, name, seen):
+    """Record the arguments of every call of ``module.name`` in ``seen``."""
+    route = getattr(module, name)
+
+    def hook(*args, **kw):
+        seen.append((args, kw))
+        return route(*args, **kw)
+
+    setattr(module, name, hook)
+    try:
+        yield
+    finally:
+        setattr(module, name, route)
+
+
+def _cmpc_candidates(ct, cm, cs, x, field, params, mpc, route="fused"):
+    play = torch.full((x.shape[0],), ct.OFFENSE, dtype=torch.int32,
+                      device=x.device)
+    return cm.candidates(cs, *ct.team_inputs(x, play, field, params),
+                         params, mpc, route)
+
+
+def _joint_factor_flops(n1, mo, mp):
+    """One factorization of the structured solve: K11 and S (lower
+    triangles, with W'W), K12, W = C1 K12, two Cholesky factors and their
+    inverses (n1^3 / 3 each)."""
+    m1 = mo + mp
+    tri = n1 * (n1 + 1) // 2
+    return tri * (6 * m1 + 2 * n1 + 5) + 3 * n1 * n1 * mp + n1 ** 3 + \
+        4 * n1 ** 3 // 3 + 4 * n1
+
+
+def _joint_iter_flops(n1, mo, mp):
+    """One ADMM iteration: w, A'w and the right-hand side, the six products
+    of the Schur solve, A x, the box and the row updates."""
+    m1, R = mo + mp, 2 * mo + mp
+    return 12 * R + 8 * n1 * m1 + mp + 8 * n1 * n1 + 36 * n1
+
+
+def _joint_res_flops(n1, mo, mp):
+    """The residuals of a segment: H x, A'y and the maxima."""
+    return 5 * (2 * mo + mp) + 2 * n1 * (2 * n1 + 2 * (mo + mp) + 10)
+
+
+def k5_flops(n1, mo, mp, n_seg, seg_iters):
+    """The f32 operations of one K5 solve (every loop count is fixed)."""
+    return n_seg * (_joint_factor_flops(n1, mo, mp) +
+                    _joint_res_flops(n1, mo, mp) +
+                    seg_iters * _joint_iter_flops(n1, mo, mp))
+
+
+def k4_flops(n1, mo, mp, M, N, n_seg0, it0, sqp_rest, it_rest):
+    """The f32 operations of one K4 solve: the gram terms once; per
+    relinearization the knot positions, the rows' scales and bounds and A;
+    per warm iteration the dual rescale and the reseed z = A x; the
+    segments as K5's (every loop count is fixed)."""
+    R = 2 * mo + mp
+    gram = 2 * N * 6 * n1
+    relin = 2 * N * (4 * n1 + 10 + 25 * M) + 30 * N + 10 * n1 * (mo + mp)
+    reseed = 4 * n1 * (mo + mp) + mp + 2 * R
+    seg = _joint_factor_flops(n1, mo, mp) + _joint_res_flops(n1, mo, mp)
+    it = _joint_iter_flops(n1, mo, mp)
+    return gram + (1 + sqp_rest) * relin + sqp_rest * reseed + \
+        (n_seg0 + sqp_rest) * seg + (n_seg0 * it0 + sqp_rest * it_rest) * it
+
+
+def _bound(args, n_out, flops):
+    """(bound ms, 'bytes' or 'operations'): each input of ``args`` read
+    once and ``n_out`` floats written once, against the f32 rate."""
+    nbytes = 4 * (sum(a.numel() for a in args) + n_out)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def _dense_joint(Hb, g, Ab, l, u, lx, ux, m_own):
+    """The structured joint QP assembled densely for ``solve_qp``: H =
+    blockdiag(Hb), A = [I (the box rows); own rows of each player in its
+    columns; the pair rows across both]."""
+    B, _, m1, n1 = Ab.shape
+    mp = m1 - m_own
+    H = torch.zeros((B, 2 * n1, 2 * n1), dtype=Hb.dtype, device=Hb.device)
+    H[:, :n1, :n1] = Hb[:, 0]
+    H[:, n1:, n1:] = Hb[:, 1]
+    A = torch.zeros((B, 2 * n1 + 2 * m_own + mp, 2 * n1), dtype=Ab.dtype,
+                    device=Ab.device)
+    A[:, :2 * n1] = torch.eye(2 * n1, dtype=Ab.dtype, device=Ab.device)
+    r = 2 * n1
+    A[:, r:r + m_own, :n1] = Ab[:, 0, :m_own]
+    A[:, r + m_own:r + 2 * m_own, n1:] = Ab[:, 1, :m_own]
+    A[:, r + 2 * m_own:, :n1] = Ab[:, 0, m_own:]
+    A[:, r + 2 * m_own:, n1:] = Ab[:, 1, m_own:]
+    return H, g, A, torch.cat([lx, l], 1), torch.cat([ux, u], 1)
+
+
+def cmpc_phase(rt, dev, card):
+    """Phase 7; returns K4's and K5's entries of the kernels line."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.agents import centralized as ct
+    from robogame_tpu_torch.agents import dmpc_team as dt
+    from robogame_tpu_torch.control import cmpc as cm
+    from robogame_tpu_torch.control import dmpc as dm
+    from robogame_tpu_torch.ops import qp, qp_lanes, sqp_lanes
+
+    mpc = rt.MpcParams()
+    N = mpc.N
+    n1, mo = 2 * N, (2 + cm.N_OBS) * N
+    key = (n1, mo, N)
+    # ---- (a) cmpc_vs_cmpc and dmpc_vs_cmpc through monte_carlo ----------
+    runs = {}
+    for name in ("cmpc_vs_cmpc", "dmpc_vs_cmpc"):
+        if name == "cmpc_vs_cmpc":
+            policy, ps0 = rt.cmpc_matchup(matchup_params(rt), B_CL, mpc=mpc,
+                                          device=dev)
+            snap, teams = DMPC_SNAPS, 2
+            want3 = {}
+        else:
+            policy, ps0 = dt.dmpc_matchup(matchup_params(rt), B_CL, "cmpc",
+                                          mpc, device=dev)
+            snap, teams = (), 1
+            want3 = {(n1, (2 + dm.N_NEIGHBORS) * N): N_STEPS}
+        params, snaps, launches, agg = run_matchup(
+            rt, kernels, f"phase7 (a) {name}", policy, ps0, dev, card, snap)
+        want4 = {key: teams * N_STEPS}
+        check(launches["K4"] == want4 and launches["K3"] == want3 and
+              not launches["K2"] and not launches["K5"],
+              f"{name}: K4 launches {launches['K4']} (expected {want4}), K3 "
+              f"{launches['K3']} (expected {want3}), K2 {launches['K2']}, K5 "
+              f"{launches['K5']}")
+        print(f"phase7 (a) {name}: goals a game A {agg['mean_score_a']:.4f} "
+              f"B {agg['mean_score_b']:.4f}; wins-draws-losses (A) "
+              f"{agg['wins_a']}-{agg['draws']}-{agg['wins_b']}; mean damage "
+              f"{agg['mean_total_damage']:.4f}  [{card}]", flush=True)
+        runs[name] = (policy, params, snaps, launches, agg)
+    agg = runs["dmpc_vs_cmpc"][4]
+    check(agg["mean_score_a"] > agg["mean_score_b"], "dmpc_vs_cmpc: the DMPC "
+          "team did not outscore the CMPC team")
+
+    # ---- (b) K4 against its plain version at step 100 -------------------
+    policy, params, snaps, launches, _ = runs["cmpc_vs_cmpc"]
+    carry, states = snaps[SNAP_STEPS[0]]
+    seen = []
+    with sqp_hook("capture", seen, "cmpc_sqp_stats"):
+        _cmpc_candidates(ct, cm, carry[0], states.x, -1, params, mpc)
+    args, kw = seen[0]
+    args = tuple(a.float().contiguous() for a in args)
+    P4 = args[1].shape[0]
+    err4 = sqp_vs_plain(
+        f"phase7 (b) K4 vs plain, team A's {P4} candidate SQPs at step "
+        f"{SNAP_STEPS[0]}", "K4",
+        lambda a: sqp_lanes.cmpc_sqp_stats(*a, **kw),
+        lambda a: sqp_lanes._cmpc_plain_stats(*a, **kw), args,
+        lambda a, x: _qp_objective(a[0], a[1], x))
+
+    # ---- (c) K4 with sqp_rest=0 against K5; K5 against its plain version
+    # and against the dense solve_qp
+    one = mpc.replace(sqp_iters=1)
+    cf = _cmpc_candidates(ct, cm, carry[0], states.x, -1, params, one)
+    seen5 = []
+    with capture(qp_lanes, "joint_qp_stats", seen5):
+        cj = _cmpc_candidates(ct, cm, carry[0], states.x, -1, params, one,
+                              "joint")
+    torch.cuda.synchronize()
+    agree = float((cf.conv == cj.conv).float().mean())
+    both = cf.conv & cj.conv
+    d = (cf.U - cj.U).abs()
+    off = both & (d > X_ATOL + X_RTOL * cj.U.abs()).any(-1)
+    nb = int(both.sum())
+    print(f"phase7 (c) K4 (sqp_rest=0) vs K5 (route 'joint', 1 SQP "
+          f"iteration) at step {SNAP_STEPS[0]}: flags agree {agree:.5f}, "
+          f"both converged {nb}: max|dU| {float(d[both].max()):.3g}, "
+          f"{int(off.sum())} outside {X_ATOL}/{X_RTOL}", flush=True)
+    check(agree >= 0.99, f"(c) K4 and K5 flags agree on {agree}")
+    check(int(off.sum()) <= SQP_OFF_MAX * nb, "(c) K4 (sqp_rest=0) "
+          "disagrees with K5")
+    args5, kw5 = seen5[0]
+    m_own, m_pair, iters = kw5["m_own"], kw5["m_pair"], kw5["iters"]
+    Ab, l, u = qp_lanes.joint_row_scale(*(a.float() for a in args5[2:5]),
+                                        m_own)
+    args5 = tuple(a.float().contiguous() for a in (
+        args5[0], args5[1], Ab, l, u, args5[5], args5[6]))
+    kw5 = dict(m_own=m_own, m_pair=m_pair, n_seg=4,
+               seg_iters=max(1, iters // 4), rho=1.0, sigma=1e-6, alpha=1.6,
+               tol=1e-3)
+    err5 = sqp_vs_plain(
+        f"phase7 (c) K5 vs plain, team A's {P4} candidate QPs at step "
+        f"{SNAP_STEPS[0]}", "K5", lambda a: kernels.qp_joint(*a, **kw5),
+        lambda a: qp_lanes.joint_plain_stats(*a, **kw5), args5,
+        lambda a, x: _qp_objective(a[0], a[1], x))
+    xk, sk = kernels.qp_joint(*args5, **kw5)
+    dense = qp.solve_qp(*_dense_joint(*args5, m_own), iters=iters)
+    torch.cuda.synchronize()
+    ck = sk[:, 0] > 0.5
+    agree = float((ck == dense.converged).float().mean())
+    both = ck & dense.converged
+    d = (xk - dense.x).abs()
+    off = both & (d > X_ATOL + X_RTOL * dense.x.abs()).any(-1)
+    nb = int(both.sum())
+    print(f"phase7 (c) K5 vs the dense solve_qp on the assembled problems "
+          f"(n={2 * n1}, m={2 * n1 + 2 * m_own + m_pair}): flags agree "
+          f"{agree:.5f}, both converged {nb}: max|dx| "
+          f"{float(d[both].max()):.3g}, {int(off.sum())} outside "
+          f"{X_ATOL}/{X_RTOL}", flush=True)
+    check(agree >= 0.99, f"(c) K5 and the dense solve flags agree on {agree}")
+    check(int(off.sum()) <= SQP_OFF_MAX * nb, "(c) K5 disagrees with the "
+          "dense solve")
+
+    # ---- (d) the policy on K4 against the policy on the plain version ---
+    teams = [(i, lambda cs, x, f=field: _cmpc_candidates(
+        ct, cm, cs, x, f, params, mpc)) for field, i in ((-1, 0), (1, 1))]
+    readings = [hold_mpc_policy(rt, f"phase7 (d) step {k}: K4 vs plain on "
+                                f"the card", policy, params, *snaps[k],
+                                "plain", teams)
+                for k in DMPC_SNAPS]
+    first = lambda a: a[:N_CPU_CMPC].contiguous()
+    readings += [hold_mpc_policy(
+        rt, f"phase7 (d) step {SNAP_STEPS[0]}, {N_CPU_CMPC} games: card vs "
+        f"CPU", policy, params, *(_tree_map(first, a)
+                                  for a in snaps[SNAP_STEPS[0]]), "cpu",
+        teams)]
+    n_off = sum(r[2] for r in readings[:-1])
+    n_held = sum(r[3] for r in readings[:-1])
+    print(f"phase7 (d) games outside {X_ATOL}/{X_RTOL}, share of those held:"
+          f" {[round(off / n_ok, 5) for _, _, off, n_ok in readings]}; "
+          f"pooled over the card states {n_off} of {n_held} "
+          f"({n_off / max(n_held, 1):.5f})", flush=True)
+    for tag, aside, off, n_ok in readings:
+        check(aside <= SET_ASIDE_MAX, f"{tag}: {aside:.4f} of the games set "
+              f"aside")
+        check(off <= cmpc_policy_off_limit(n_ok), f"{tag}: policy differs "
+              f"in {off} of {n_ok} games (limit "
+              f"{cmpc_policy_off_limit(n_ok):.2f})")
+
+    # ---- (e) cmpc_vs_cmpc on route 'joint' (K5, relinearized) -----------
+    carry, states = _clone(snaps[SNAP_STEPS[0]])
+    kernels.reset_launches()
+    step_ms = []
+    for _ in range(N_JOINT):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ca, u_a = ct.team_step_batch(carry[0], states.x, ct.OFFENSE, -1,
+                                     params, mpc, "joint")
+        cb, u_b = ct.team_step_batch(carry[1], states.x, ct.OFFENSE, 1,
+                                     params, mpc, "joint")
+        states = rt.step_batch(states, torch.cat([u_a, u_b], 1), params,
+                               device=dev)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        carry = (ca, cb)
+    k5_launches = dict(kernels.joint_launches)
+    want5 = {key: 2 * N_JOINT * mpc.sqp_iters}
+    print(f"phase7 (e) cmpc_vs_cmpc on route 'joint' from step "
+          f"{SNAP_STEPS[0]}: {N_JOINT} steps of "
+          f"{[round(t, 3) for t in step_ms]}"
+          f" ms; K5 launches {k5_launches}  [{card}]", flush=True)
+    check(k5_launches == want5 and not kernels.cmpc_launches and
+          bool(torch.isfinite(states.x).all()),
+          f"(e) K5 launches {k5_launches}, expected {want5}")
+
+    # ---- (f) K4's and K5's times per launch ------------------------------
+    entries = []
+    for name, run, plain, a, flops, err, n_launch, src, repl, label in (
+            ("K4", lambda: sqp_lanes.cmpc_sqp_stats(*args, **kw),
+             lambda: sqp_lanes._cmpc_plain_stats(*args, **kw), args,
+             k4_flops(n1, mo, N, cm.N_OBS, N, kw["n_seg0"], kw["it0"],
+                      kw["sqp_rest"], kw["it_rest"]), err4,
+             launches["K4"][key], "cmpc_sqp.cu", "sqp_pallas.py:77",
+             "cmpc_sqp, fused joint CMPC SQP"),
+            ("K5", lambda: kernels.qp_joint(*args5, **kw5),
+             lambda: qp_lanes.joint_plain_stats(*args5, **kw5), args5,
+             k5_flops(n1, mo, N, kw5["n_seg"], kw5["seg_iters"]), err5,
+             k5_launches[key], "qp_joint.cu", "qp_pallas.py:420",
+             "qp_joint, structured joint QP")):
+        for _ in range(2):
+            run()
+        ms, _ = cuda_ms(run, reps=5)
+        plain_ms, _ = cuda_ms(plain, reps=2)
+        P = a[1].shape[0]
+        bound, by = _bound(a, P * (2 * n1 + 5), P * flops)
+        print(f"phase7 (f) {name} (P={P}, n1={n1} x 2, m_own={mo} x 2, "
+              f"m_pair={N}): {ms:.4f} ms per launch; plain {plain_ms:.3f} "
+              f"ms; bound {bound:.4f} ms ({by}: {flops / 1e6:.2f} MFLOP a "
+              f"problem)  [{card}]", flush=True)
+        entries.append({
+            "name": f"{name} {label} (n1={n1} x 2, m_own={mo} x 2, "
+                    f"m_pair={N}, {P} per launch)",
+            "route": "cuda",
+            "source": f"robogame_tpu_torch/csrc/{src}",
+            "replaces": f"robogame_tpu/ops/{repl}",
+            "launches": n_launch,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -846,7 +1218,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase0 build K1, K2, K3: {build_s:.2f} s (nvcc seconds "
+    print(f"phase0 build K1-K5: {build_s:.2f} s (nvcc seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
 
     P1 = rt.SimParams(engine="pallas_exact", two_phase=False)
@@ -1078,7 +1450,8 @@ def main() -> int:
           f"bytes / {t_ops:.4f} ms ops  [{card}]", flush=True)
     k2 = closed_loop_and_k2(rt, dev, card)
     k3 = dmpc_phase(rt, dev, card)
-    print(json.dumps({"kernels": [kern, *k2, k3]}))
+    k45 = cmpc_phase(rt, dev, card)
+    print(json.dumps({"kernels": [kern, *k2, k3, *k45]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

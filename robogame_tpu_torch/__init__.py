@@ -3,8 +3,10 @@
 The batched Monte-Carlo game step runs on a hand-written CUDA kernel for
 Hopper (``csrc/exact_step.cu``, K1), every batched QP of the classical
 team and the CBF safety filter on a second one (``csrc/qp_admm.cu``, K2),
-and every DMPC candidate's whole SQP on a third (``csrc/dmpc_sqp.cu``,
-K3).
+every DMPC candidate's whole SQP on a third (``csrc/dmpc_sqp.cu``, K3),
+and every CMPC candidate's joint SQP on a fourth (``csrc/cmpc_sqp.cu``,
+K4), with the structured joint QP of the CMPC "joint" route on a fifth
+(``csrc/qp_joint.cu``, K5).
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels.
 
@@ -23,8 +25,16 @@ Every entry point runs on ``cuda`` unless the caller passes
     # DMPC vs DMPC (the reference's test_dmpc.py), 512 full games
     from robogame_tpu_torch import dmpc_matchup
     policy, ps = dmpc_matchup(params, 512, "dmpc")
+
+    # CMPC vs CMPC (the reference's bl_vs_bl), DMPC vs CMPC
+    from robogame_tpu_torch import cmpc_matchup
+    policy, ps = cmpc_matchup(params, 512)
+    policy, ps = dmpc_matchup(params, 512, "cmpc")
 """
 
+from .agents.centralized import (BaselineCentralizedPlayers,
+                                 CentralizedTeam, cmpc_matchup,
+                                 cmpc_state_from_numpy, cmpc_state_to_numpy)
 from .agents.dmpc_team import (DMPCPlayer, DMPCTeam, DmpcTeamState,
                                dmpc_matchup, dmpc_state_from_numpy,
                                dmpc_state_to_numpy)
@@ -35,27 +45,34 @@ from .agents.classical import (ClassicalTeam, PlayerState, TeamState,
 from .config import (CbfParams, MpcParams, SimParams, StrategyParams,
                      resolve_device)
 from .control.cbf import CbfResult, safe_control, safe_control_batch
+from .control.cmpc import CmpcState, initial_cmpc_state
 from .control.dmpc import DmpcState, compute_control, compute_control_batch
 from .control.trajopt import Trajectory, min_time_traj, min_time_traj_batch
 from .ops.qp import QpSolution, solve_qp
-from .ops.qp_lanes import solve_qp_lanes
-from .ops.sqp_lanes import solve_dmpc_sqp_lanes, solve_dmpc_sqp_plain
+from .ops.qp_lanes import (solve_qp_lanes, solve_qp_lanes_joint,
+                           solve_qp_lanes_joint_plain)
+from .ops.sqp_lanes import (solve_cmpc_sqp_lanes, solve_cmpc_sqp_plain,
+                            solve_dmpc_sqp_lanes, solve_dmpc_sqp_plain)
 from .parallel.monte_carlo import McParams, McResult, aggregate, monte_carlo
 from .physics.exact_step import step_batch
 from .state import (GameState, SimStateView, from_numpy, from_vector,
                     initial_state, to_numpy, to_vector, undecided)
 
 __all__ = [
-    "CbfParams", "CbfResult", "ClassicalTeam", "DMPCPlayer", "DMPCTeam",
-    "DmpcState", "DmpcTeamState", "GameState", "McParams", "McResult",
-    "MpcParams", "PlayerState", "QpSolution", "SimParams", "SimStateView",
-    "StrategyParams", "TeamState", "Trajectory", "aggregate",
-    "classical_matchup", "compute_control", "compute_control_batch",
-    "dmpc_matchup", "dmpc_state_from_numpy", "dmpc_state_to_numpy",
-    "from_numpy", "from_vector", "initial_state", "initial_team_state",
+    "BaselineCentralizedPlayers", "CbfParams", "CbfResult", "CentralizedTeam",
+    "ClassicalTeam", "CmpcState", "DMPCPlayer", "DMPCTeam", "DmpcState",
+    "DmpcTeamState", "GameState", "McParams", "McResult", "MpcParams",
+    "PlayerState", "QpSolution", "SimParams", "SimStateView", "StrategyParams",
+    "TeamState", "Trajectory", "aggregate", "classical_matchup",
+    "cmpc_matchup", "cmpc_state_from_numpy", "cmpc_state_to_numpy",
+    "compute_control", "compute_control_batch", "dmpc_matchup",
+    "dmpc_state_from_numpy", "dmpc_state_to_numpy", "from_numpy",
+    "from_vector", "initial_cmpc_state", "initial_state", "initial_team_state",
     "min_time_traj", "min_time_traj_batch", "monte_carlo", "resolve_device",
-    "safe_control", "safe_control_batch", "solve_dmpc_sqp_lanes",
-    "solve_dmpc_sqp_plain", "solve_qp", "solve_qp_lanes", "step_batch",
-    "team_policy", "team_policy_batch", "team_state_from_numpy",
-    "team_state_to_numpy", "to_numpy", "to_vector", "undecided",
+    "safe_control", "safe_control_batch", "solve_cmpc_sqp_lanes",
+    "solve_cmpc_sqp_plain", "solve_dmpc_sqp_lanes", "solve_dmpc_sqp_plain",
+    "solve_qp", "solve_qp_lanes", "solve_qp_lanes_joint",
+    "solve_qp_lanes_joint_plain", "step_batch", "team_policy",
+    "team_policy_batch", "team_state_from_numpy", "team_state_to_numpy",
+    "to_numpy", "to_vector", "undecided",
 ]

@@ -15,7 +15,8 @@ d_goalie_defense`` (7.5) and ``arena_x - d_goalie_offense`` (5.0).  Since
 reference team always plays OFFENSE; the port keeps that quirk.
 
 :func:`dmpc_matchup` pairs a DMPC team A with a DMPC or a no-op team B as
-a ``monte_carlo`` policy, optionally behind the CBF filter.
+a ``monte_carlo`` policy, optionally behind the CBF filter; against a
+CMPC team B it is the reference's dmpc_vs_cmpc pairing.
 """
 
 from __future__ import annotations
@@ -28,9 +29,12 @@ import torch
 from ..config import (A1, A2, B1, B2, PUCK, CbfParams, MpcParams, SimParams,
                       StrategyParams, resolve_device)
 from ..control.cbf import safe_control_batch
+from ..control.cmpc import initial_cmpc_state
 from ..control.dmpc import (DmpcState, compute_control,
                             compute_control_batch, initial_dmpc_state)
 from ..state import SimStateView
+from .centralized import OFFENSE as CMPC_OFFENSE
+from .centralized import team_step_batch as cmpc_team_step_batch
 
 OFFENSE, DEFENSE = 0, 1
 ATTACKER, DEFENDER = 1, 2
@@ -169,13 +173,13 @@ def dmpc_matchup(params: SimParams, B: int, opponent: str = "dmpc",
                  mpc: MpcParams | None = None,
                  strat: StrategyParams | None = None,
                  cbf: CbfParams | None = None, device="cuda"):
-    """DMPC team A (field -1) against a DMPC or a no-op team B (+1) as a
-    ``monte_carlo`` policy, with the CBF filter over all 4 players'
-    controls when ``cbf`` is given (the reference's dmpc pairings).
-    Returns (policy, initial policy state); per control step each DMPC team
-    makes one K3 launch."""
-    if opponent not in ("dmpc", "noop"):
-        raise ValueError(f"opponent must be 'dmpc' or 'noop', got "
+    """DMPC team A (field -1) against a DMPC, a CMPC or a no-op team B
+    (+1) as a ``monte_carlo`` policy, with the CBF filter over all 4
+    players' controls when ``cbf`` is given (the reference's dmpc
+    pairings).  Returns (policy, initial policy state); per control step
+    each DMPC team makes one K3 launch, a CMPC team one K4 launch."""
+    if opponent not in ("dmpc", "cmpc", "noop"):
+        raise ValueError(f"opponent must be 'dmpc', 'cmpc' or 'noop', got "
                          f"{opponent!r}")
     mpc = mpc or MpcParams()
     strat = strat or StrategyParams()
@@ -187,6 +191,9 @@ def dmpc_matchup(params: SimParams, B: int, opponent: str = "dmpc",
         ta, u_a = team_step_batch(ta, states.x, -1, params, mpc, strat)
         if opponent == "dmpc":
             tb, u_b = team_step_batch(tb, states.x, 1, params, mpc, strat)
+        elif opponent == "cmpc":
+            tb, u_b = cmpc_team_step_batch(tb, states.x, CMPC_OFFENSE, 1,
+                                           params, mpc)
         else:
             u_b = torch.zeros_like(u_a)
         u = torch.cat([u_a, u_b], dim=1)                    # (B, 4, 2)
@@ -196,7 +203,10 @@ def dmpc_matchup(params: SimParams, B: int, opponent: str = "dmpc",
         return (ta, tb), u
 
     init = lambda: initial_team_state(mpc, dtype, dev, (B,))
-    return policy, (init(), init() if opponent == "dmpc" else None)
+    init_b = {"dmpc": init,
+              "cmpc": lambda: initial_cmpc_state(mpc, dtype, dev, (B,)),
+              "noop": lambda: None}[opponent]
+    return policy, (init(), init_b())
 
 
 class DMPCPlayer:

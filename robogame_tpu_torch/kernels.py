@@ -7,7 +7,13 @@ source and the flags), and bound with ``ctypes``:
 
 * K1, ``csrc/exact_step.cu``: the event-order-exact control step;
 * K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve;
-* K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve.
+* K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve;
+* K4, ``csrc/cmpc_sqp.cu``: the fused joint two-player CMPC SQP solve;
+* K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve.
+
+K4 and K5 share their ADMM and block-Schur machinery in
+``csrc/joint_schur.cuh``; a library's name hashes its source with the
+headers it includes.
 
 :func:`build_all` starts one ``nvcc`` per source that is not built yet, all
 at once.  Nothing here runs while the module is imported, so the CPU tests
@@ -18,8 +24,9 @@ operation the plain PyTorch versions do (true division, correctly rounded
 square root, no contraction into FMAs).
 
 Launch counters, added to only by the launch paths below: ``launches``
-holds K1's per mode, ``qp_launches`` K2's per (n, m) shape and
-``sqp_launches`` K3's per (n1, m_own) shape.
+holds K1's per mode, ``qp_launches`` K2's per (n, m) shape,
+``sqp_launches`` K3's per (n1, m_own) shape, ``cmpc_launches`` K4's and
+``joint_launches`` K5's per (n1, m_own, m_pair) shape.
 """
 
 from __future__ import annotations
@@ -38,7 +45,12 @@ import torch
 _PKG = Path(__file__).resolve().parent
 SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
            "qp_admm": _PKG / "csrc" / "qp_admm.cu",
-           "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu"}
+           "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu",
+           "cmpc_sqp": _PKG / "csrc" / "cmpc_sqp.cu",
+           "qp_joint": _PKG / "csrc" / "qp_joint.cu"}
+# the headers each source includes (hashed with it)
+HEADERS = {"cmpc_sqp": [_PKG / "csrc" / "joint_schur.cuh"],
+           "qp_joint": [_PKG / "csrc" / "joint_schur.cuh"]}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -47,6 +59,8 @@ _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
 qp_launches: dict = {}
 sqp_launches: dict = {}
+cmpc_launches: dict = {}
+joint_launches: dict = {}
 build_seconds: dict = {}
 _libs: dict = {}
 
@@ -54,8 +68,8 @@ _libs: dict = {}
 def reset_launches() -> None:
     for mode in launches:
         launches[mode] = 0
-    qp_launches.clear()
-    sqp_launches.clear()
+    for counts in (qp_launches, sqp_launches, cmpc_launches, joint_launches):
+        counts.clear()
 
 
 def _nvcc() -> str:
@@ -70,9 +84,10 @@ def _nvcc() -> str:
 
 
 def _out_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = b"".join(f.read_bytes() for f in [SOURCES[name],
+                                             *HEADERS.get(name, [])])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -118,6 +133,8 @@ _SIGNATURES = {
     "exact_step": ("rg_exact_step", [_P] * 13 + [_I] * 4 + [_P]),
     "qp_admm": ("rg_qp_admm", [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P]),
     "dmpc_sqp": ("rg_dmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
+    "cmpc_sqp": ("rg_cmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
+    "qp_joint": ("rg_qp_joint", [_P] * 9 + [_I] * 6 + [_F] * 6 + [_P]),
 }
 
 
@@ -251,4 +268,80 @@ def dmpc_sqp(H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *, N: int,
         raise RuntimeError(f"K3 launch failed: cudaError {err} "
                            f"(B={B}, N={N}, n_obs={n_obs})")
     sqp_launches[(n1, m_own)] = sqp_launches.get((n1, m_own), 0) + 1
+    return x, stats
+
+
+def cmpc_sqp(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *, N: int,
+             n_obs: int, n_seg0: int, it0: int, sqp_rest: int, it_rest: int,
+             rho: float, sigma: float, alpha: float, tol: float, d2: float):
+    """Launch K4 over B = g.shape[0] joint CMPC SQPs on the current stream
+    (the layouts of ``ops/sqp_lanes.py::solve_cmpc_sqp_lanes``).  Returns x
+    (B, 2 n1) and stats (B, 5) = [converged, prim_res, dual_res, p_sc,
+    d_sc]."""
+    dev = g.device
+    B = g.shape[0]
+    n1 = 2 * N
+    m_own = (2 + n_obs) * N
+    for name, t, shape in (("Hb", Hb, (B, 2, n1, n1)), ("g", g, (B, 2 * n1)),
+                           ("sg", sg, (B, 2, N, 2, n1)),
+                           ("p0", p0, (B, 2, N, 2)),
+                           ("obs", obs, (B, n_obs, 2)),
+                           ("lo_arena", lo_arena, (B, 2, 2 * N)),
+                           ("hi_arena", hi_arena, (B, 2, 2 * N)),
+                           ("lx", lx, (B, 2 * n1)), ("ux", ux, (B, 2 * n1)),
+                           ("U0", U0, (B, 2 * n1))):
+        _check(name, t, shape, dev)
+    x = torch.empty((B, 2 * n1), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, 5), dtype=torch.float32, device=dev)
+    if B == 0:
+        return x, stats
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("cmpc_sqp").rg_cmpc_sqp(
+            _ptr(Hb), _ptr(g), _ptr(sg), _ptr(p0), _ptr(obs), _ptr(lo_arena),
+            _ptr(hi_arena), _ptr(lx), _ptr(ux), _ptr(U0), _ptr(x),
+            _ptr(stats), B, N, n_obs, int(n_seg0), int(it0), int(sqp_rest),
+            int(it_rest), float(rho), float(sigma), float(alpha), float(tol),
+            float(10.0 * tol), float(d2), float(1.0 / (2 * n1)), stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: cudaError {err} "
+                           f"(B={B}, N={N}, n_obs={n_obs})")
+    key = (n1, m_own, N)
+    cmpc_launches[key] = cmpc_launches.get(key, 0) + 1
+    return x, stats
+
+
+def qp_joint(Hb, g, Ab, l, u, lx, ux, *, m_own: int, m_pair: int,
+             n_seg: int, seg_iters: int, rho: float, sigma: float,
+             alpha: float, tol: float):
+    """Launch K5 over B = g.shape[0] structured joint QPs on the current
+    stream (the layouts of ``ops/qp_lanes.py::solve_qp_lanes_joint``, rows
+    already scaled).  Returns x (B, 2 n1) and stats (B, 5) = [converged,
+    prim_res, dual_res, p_sc, d_sc]."""
+    dev = g.device
+    B = g.shape[0]
+    n1 = Hb.shape[-1]
+    R = 2 * m_own + m_pair
+    for name, t, shape in (("Hb", Hb, (B, 2, n1, n1)), ("g", g, (B, 2 * n1)),
+                           ("Ab", Ab, (B, 2, m_own + m_pair, n1)),
+                           ("l", l, (B, R)), ("u", u, (B, R)),
+                           ("lx", lx, (B, 2 * n1)), ("ux", ux, (B, 2 * n1))):
+        _check(name, t, shape, dev)
+    x = torch.empty((B, 2 * n1), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, 5), dtype=torch.float32, device=dev)
+    if B == 0:
+        return x, stats
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("qp_joint").rg_qp_joint(
+            _ptr(Hb), _ptr(g), _ptr(Ab), _ptr(l), _ptr(u), _ptr(lx),
+            _ptr(ux), _ptr(x), _ptr(stats), B, n1, m_own, m_pair,
+            int(n_seg), int(seg_iters), float(rho), float(sigma),
+            float(alpha), float(tol), float(10.0 * tol),
+            float(1.0 / (2 * n1)), stream)
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: cudaError {err} "
+                           f"(B={B}, n1={n1}, m_own={m_own}, m_pair={m_pair})")
+    key = (n1, m_own, m_pair)
+    joint_launches[key] = joint_launches.get(key, 0) + 1
     return x, stats

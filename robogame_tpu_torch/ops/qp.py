@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..plain import plain_version
+
 
 class QpSolution(NamedTuple):
     x: torch.Tensor           # (P, n) primal solution
@@ -51,6 +53,7 @@ def _amax(v):
     return v.abs().amax(dim=-1)
 
 
+@plain_version
 def solve_qp(H, g, A, l, u, iters: int = 50, rho: float = 1.0,
              sigma: float = 1e-6, alpha: float = 1.6, tol: float = 1e-3,
              scale_rows: bool = False, n_seg: int = 4) -> QpSolution:

@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from ..plain import plain_version
 from .qp import QpSolution, row_scale, solve_qp
+from .sqp_lanes import _amax, _mv, _solution
 
 MAX_N, MAX_M = 64, 256    # K2's supported shapes: n <= 64, m <= 256
 
@@ -65,3 +67,249 @@ def solve_qp_lanes(H, g, A, l, u, iters: int = 50, n_seg: int = 4,
         A = A.repeat_interleave(group, dim=0)
     return solve_qp(H, g, A, l, u, iters=iters, rho=rho, sigma=sigma,
                     alpha=alpha, tol=tol, n_seg=n_seg)
+
+
+# ---------------------------------------------------------------------------
+# The structured two-agent QP on the hand-written CUDA kernel K5
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the JAX package's ``ops/qp_pallas.py::solve_qp_lanes_joint``
+# (the CMPC shape): per-player column blocks, the input box as implicit
+# rows, a block-Schur solve.  For CUDA tensors it launches K5
+# (``csrc/qp_joint.cu`` through ``kernels.qp_joint``) or raises; for CPU
+# tensors it runs the plain version below, which follows the kernel's
+# arithmetic: per segment the factors of
+#
+#     K = [[K11, K12], [K12', K22]],  Kpp = Hp + (sigma + rho) I + Ap' Rp Ap,
+#     K12 = P1' Rpair P2 (the pair rows' blocks),
+#
+# as C1 = chol(K11)^-1, W = C1 K12, Cs = chol(K22 - W'W)^-1, and each ADMM
+# iteration solves K x = r in six triangular or full products:
+# t1 = C1 r1, t2 = r2 - W't1, u2 = Cs t2, x2 = Cs'u2, v1 = t1 - W x2,
+# x1 = C1'v1.
+
+# K5's and K4's supported sizes: n1 % 8 == 0 (JAX's own limit), n1 <= 64
+# variables a player and at most 512 constraint rows (2 m_own + m_pair)
+MAX_N1_JOINT, MAX_ROWS_JOINT = 64, 512
+
+
+def _joint_check(name, Hb, g, Ab, l, u, lx, ux, m_own, m_pair):
+    B = g.shape[0]
+    n1 = Hb.shape[-1]
+    if n1 % 8 != 0:
+        raise ValueError(f"{name}: joint kernel requires n1 % 8 == 0, got "
+                         f"{n1}")
+    R = 2 * m_own + m_pair
+    want = {"Hb": (B, 2, n1, n1), "g": (B, 2 * n1),
+            "Ab": (B, 2, m_own + m_pair, n1), "l": (B, R), "u": (B, R),
+            "lx": (B, 2 * n1), "ux": (B, 2 * n1)}
+    got = {"Hb": Hb, "g": g, "Ab": Ab, "l": l, "u": u, "lx": lx, "ux": ux}
+    for key, shape in want.items():
+        if tuple(got[key].shape) != shape:
+            raise ValueError(f"{name}: {key} must be {shape}, got "
+                             f"{tuple(got[key].shape)}")
+
+
+def joint_row_scale(Ab, l, u, m_own: int):
+    """Row equilibration by the full joint-row norm (a pair row spans both
+    players' blocks), as the JAX wrapper does before its kernel; the box
+    rows have unit norm and stay unscaled.  Returns the scaled (Ab, l, u)."""
+    B = Ab.shape[0]
+    m_pair = Ab.shape[2] - m_own
+    own = Ab[:, :, :m_own]
+    d_own = 1.0 / torch.clamp(torch.sqrt((own * own).sum(-1)), min=1e-8)
+    pair = Ab[:, :, m_own:]
+    d_pair = 1.0 / torch.clamp(torch.sqrt((pair * pair).sum((-1, -3))),
+                               min=1e-8)
+    d_ab = torch.cat([d_own, d_pair[:, None].expand(B, 2, m_pair)], dim=2)
+    d_rows = torch.cat([d_own[:, 0], d_own[:, 1], d_pair], dim=1)
+    return Ab * d_ab[..., None], l * d_rows, u * d_rows
+
+
+def joint_qp_stats(Hb, g, Ab, l, u, lx, ux, *, m_own: int, m_pair: int,
+                   iters: int = 50, n_seg: int = 4, rho: float = 1.0,
+                   sigma: float = 1e-6, alpha: float = 1.6,
+                   tol: float = 1e-3, scale_rows: bool = False):
+    """The structured joint QP solve by device: K5 on CUDA tensors, the
+    plain version on CPU tensors.  Returns x (B, 2 n1) and stats (B, 5) =
+    [converged, prim_res, dual_res, p_sc, d_sc] of the last segment."""
+    _joint_check("solve_qp_lanes_joint", Hb, g, Ab, l, u, lx, ux, m_own,
+                 m_pair)
+    f = torch.float32
+    Hb, g, Ab, l, u, lx, ux = (t.to(f) for t in (Hb, g, Ab, l, u, lx, ux))
+    if scale_rows:
+        Ab, l, u = joint_row_scale(Ab, l, u, m_own)
+    args = [t.contiguous() for t in (Hb, g, Ab, l, u, lx, ux)]
+    kw = dict(m_own=m_own, m_pair=m_pair, n_seg=n_seg,
+              seg_iters=max(1, iters // n_seg), rho=rho, sigma=sigma,
+              alpha=alpha, tol=tol)
+    dev = g.device
+    if dev.type == "cuda":
+        n1 = Hb.shape[-1]
+        if n1 > MAX_N1_JOINT or 2 * m_own + m_pair > MAX_ROWS_JOINT:
+            raise ValueError(f"K5 supports n1 <= {MAX_N1_JOINT} and at most "
+                             f"{MAX_ROWS_JOINT} rows, got n1={n1}, "
+                             f"{2 * m_own + m_pair} rows")
+        from .. import kernels
+        return kernels.qp_joint(*args, **kw)
+    if dev.type != "cpu":
+        raise ValueError(f"K5 runs on cuda or cpu tensors, not {dev}")
+    return joint_plain_stats(*args, **kw)
+
+
+def solve_qp_lanes_joint(Hb, g, Ab, l, u, lx, ux, **kw) -> QpSolution:
+    """Two-agent joint QP over B problems (the CMPC shape):
+
+        min 1/2 x'Hx + g'x  s.t.  lx <= x <= ux,  l <= A x <= u
+
+    with H = blockdiag(Hb[:, 0], Hb[:, 1]) (B, 2, n1, n1), g (B, 2 n1),
+    Ab (B, 2, m_own + m_pair, n1) player p's columns of its own rows then
+    of the m_pair shared rows (pair row r is [Ab[:, 0, m_own + r],
+    Ab[:, 1, m_own + r]]), l/u (B, 2 m_own + m_pair) ordered [own 1, own 2,
+    pair], lx/ux (B, 2 n1).  K5 on CUDA tensors, the plain version on CPU
+    tensors.  Keyword arguments as :func:`joint_qp_stats` (``m_own`` and
+    ``m_pair`` required)."""
+    return _solution(*joint_qp_stats(Hb, g, Ab, l, u, lx, ux, **kw))
+
+
+def solve_qp_lanes_joint_plain(Hb, g, Ab, l, u, lx, ux, *, m_own: int,
+                               m_pair: int, iters: int = 50, n_seg: int = 4,
+                               rho: float = 1.0, sigma: float = 1e-6,
+                               alpha: float = 1.6, tol: float = 1e-3,
+                               scale_rows: bool = False) -> QpSolution:
+    """K5's plain PyTorch version on the tensors' own device and dtype (the
+    card only to compare with the kernel)."""
+    _joint_check("solve_qp_lanes_joint_plain", Hb, g, Ab, l, u, lx, ux,
+                 m_own, m_pair)
+    if scale_rows:
+        Ab, l, u = joint_row_scale(Ab, l, u, m_own)
+    return _solution(*joint_plain_stats(
+        Hb, g, Ab, l, u, lx, ux, m_own=m_own, m_pair=m_pair, n_seg=n_seg,
+        seg_iters=max(1, iters // n_seg), rho=rho, sigma=sigma, alpha=alpha,
+        tol=tol))
+
+
+def joint_ax(A, x, m_own: int):
+    """A x for the blocks A (B, 2, m1, n1) at x (B, 2 n1): rows [own 1 (m_own),
+    own 2 (m_own), pair (m_pair)]; a pair row sums both players' parts."""
+    n1 = A.shape[-1]
+    f = _mv(A, x.reshape(-1, 2, n1))                       # (B, 2, m1)
+    return torch.cat([f[:, 0, :m_own], f[:, 1, :m_own],
+                      f[:, 0, m_own:] + f[:, 1, m_own:]], dim=1)
+
+
+def joint_atw(A, w, m_own: int):
+    """A'w (B, 2 n1) for a row vector w (B, 2 m_own + m_pair)."""
+    wf = torch.stack([torch.cat([w[:, :m_own], w[:, 2 * m_own:]], 1),
+                      torch.cat([w[:, m_own:2 * m_own], w[:, 2 * m_own:]], 1)],
+                     dim=1)                                # (B, 2, m1)
+    return _mv(A.transpose(-1, -2), wf).flatten(1)
+
+
+def _tri_inv(K):
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return torch.linalg.solve_triangular(torch.linalg.cholesky(K),
+                                         eye.expand_as(K), upper=False)
+
+
+def schur_factors(Hb, A, ro, rho_s, sigma_t, m_own: int):
+    """The block-Schur factors (C1, W, Cs) of K for the blocks A, row
+    penalties ro (B, R) and the box rows' rho_s (B,)."""
+    n1 = A.shape[-1]
+    eye = torch.eye(n1, dtype=A.dtype, device=A.device)
+    rp = ro[:, 2 * m_own:]
+    r1 = torch.cat([ro[:, :m_own], rp], dim=1)
+    r2 = torch.cat([ro[:, m_own:2 * m_own], rp], dim=1)
+    A1, A2 = A[:, 0], A[:, 1]
+    diag = (sigma_t + rho_s)[:, None, None] * eye
+    K11 = (A1.transpose(-1, -2) * r1[:, None, :]) @ A1 + Hb[:, 0] + diag
+    C1 = _tri_inv(K11)
+    K12 = (A1[:, m_own:].transpose(-1, -2) * rp[:, None, :]) @ A2[:, m_own:]
+    W = C1 @ K12
+    K22 = (A2.transpose(-1, -2) * r2[:, None, :]) @ A2 + Hb[:, 1] + diag
+    Cs = _tri_inv(K22 - W.transpose(-1, -2) @ W)
+    return C1, W, Cs
+
+
+def schur_solve(C1, W, Cs, r):
+    """x = K^-1 r through the factors of :func:`schur_factors`."""
+    n1 = C1.shape[-1]
+    Wt = W.transpose(-1, -2)
+    t1 = _mv(C1, r[:, :n1])
+    t2 = r[:, n1:] - _mv(Wt, t1)
+    x2 = _mv(Cs.transpose(-1, -2), _mv(Cs, t2))
+    x1 = _mv(C1.transpose(-1, -2), t1 - _mv(W, x2))
+    return torch.cat([x1, x2], dim=1)
+
+
+def joint_segment(c, Hb, g, A, lo, hi, lx, ux, is_eq, iters: int,
+                  m_own: int, sigma_t, alpha_t):
+    """One adaptive-rho segment of the structured ADMM from the carry
+    c = (x, zx, z, yx, y, rho_s): factor, ``iters`` iterations, residuals,
+    the rho update.  Rows with ``is_eq`` take 1e3 rho (None: no equality
+    rows).  Returns (carry, (prim, dual, p_sc, d_sc))."""
+    x, zx, z, yx, y, rho_s = c
+    r = rho_s[:, None]
+    ro = r.expand_as(z) if is_eq is None else torch.where(is_eq, 1e3 * r, r)
+    one_m_alpha = 1 - alpha_t
+    C1, W, Cs = schur_factors(Hb, A, ro, rho_s, sigma_t, m_own)
+    for _ in range(iters):
+        rhs = sigma_t * x - g + joint_atw(A, ro * z - y, m_own) + \
+            (r * zx - yx)
+        x = schur_solve(C1, W, Cs, rhs)
+        ax = joint_ax(A, x, m_own)
+        zx_t = alpha_t * x + one_m_alpha * zx
+        zx_n = torch.minimum(torch.maximum(zx_t + yx / r, lx), ux)
+        yx = yx + r * (zx_t - zx_n)
+        zx = zx_n
+        z_t = alpha_t * ax + one_m_alpha * z
+        z_n = torch.minimum(torch.maximum(z_t + y / ro, lo), hi)
+        y = y + ro * (z_t - z_n)
+        z = z_n
+    n1 = A.shape[-1]
+    ax = joint_ax(A, x, m_own)
+    Hx = _mv(Hb, x.reshape(-1, 2, n1)).flatten(1)
+    Aty = joint_atw(A, y, m_own) + yx
+    prim = _amax(x - zx, ax - z)
+    dual = _amax(Hx + g + Aty)
+    p_sc = torch.maximum(_amax(x, ax), _amax(zx, z)) + 1e-9
+    d_sc = torch.maximum(_amax(Hx, Aty), _amax(g)) + 1e-9
+    ratio = torch.sqrt((prim / p_sc) / (dual / d_sc + 1e-12))
+    rho_s = torch.clamp(rho_s * torch.clamp(ratio, 0.2, 5.0), 1e-6, 1e8)
+    return (x, zx, z, yx, y, rho_s), (prim, dual, p_sc, d_sc)
+
+
+def joint_rho0(Hb, rho: float):
+    """rho0 = clip(tr(H) / n, 1e-3, 1e6) rho over both blocks."""
+    n2 = 2 * Hb.shape[-1]
+    tr = Hb.diagonal(dim1=-2, dim2=-1).sum((-1, -2))
+    return torch.clamp(tr * (1.0 / n2), 1e-3, 1e6) * rho
+
+
+def joint_stats(res, tol: float):
+    prim, dual, p_sc, d_sc = res
+    conv = (prim < tol * p_sc) & (dual < 10.0 * tol * d_sc)
+    return torch.stack([conv.to(prim.dtype), prim, dual, p_sc, d_sc], dim=1)
+
+
+@plain_version
+def joint_plain_stats(Hb, g, Ab, l, u, lx, ux, *, m_own: int, m_pair: int,
+                      n_seg: int, seg_iters: int, rho: float, sigma: float,
+                      alpha: float, tol: float):
+    """K5's plain version on rows already scaled: ``n_seg`` cold segments
+    of ``seg_iters`` iterations.  Returns x (B, 2 n1) and stats (B, 5)."""
+    if Hb.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("solve_qp_lanes_joint_plain needs full-f32 "
+                           "matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    dtype, dev = g.dtype, g.device
+    sigma_t = torch.full((), sigma, dtype=dtype, device=dev)
+    alpha_t = torch.full((), alpha, dtype=dtype, device=dev)
+    zv = torch.zeros_like(g)
+    zr = torch.zeros_like(l)
+    c = (zv, zv, zr, zv, zr, joint_rho0(Hb, rho))
+    res = None
+    for _ in range(n_seg):
+        c, res = joint_segment(c, Hb, g, Ab, l, u, lx, ux, l == u,
+                               seg_iters, m_own, sigma_t, alpha_t)
+    return c[0], joint_stats(res, tol)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..plain import plain_version
 from .qp import QpSolution
 
 # K3's supported sizes: n1 = 2N with n1 % 8 == 0 and n1 <= 64, and at most
@@ -127,6 +128,7 @@ def solve_dmpc_sqp_plain(H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0,
                                    lx, ux, U0, **kw))
 
 
+@plain_version
 def _plain_stats(H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
                  N: int, n_obs: int, n_seg0: int = 4, it0: int = 37,
                  sqp_rest: int = 5, it_rest: int = 40, rho: float = 1.0,
@@ -220,3 +222,187 @@ def _plain_stats(H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
     conv = (prim < tol * p_sc) & (dual < 10.0 * tol * d_sc)
     stats = torch.stack([conv.to(dtype), prim, dual, p_sc, d_sc], dim=1)
     return c[0], stats
+
+
+# ---------------------------------------------------------------------------
+# The fused joint two-player CMPC SQP on the hand-written CUDA kernel K4
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the JAX package's ``ops/sqp_pallas.py::solve_cmpc_sqp_lanes``:
+# K3's SQP loop for the centralized two-player problem, on K5's structured
+# ADMM (per-player column blocks, the m_pair = N shared pair rows, the
+# block-Schur solve).  Per player p the own rows are [arena x (N); arena y
+# (N); keepout of obstacle m at knot k (n_obs N)], relinearized at x from
+# sg; pair row k is [2 (dp . sg_1[k]), -2 (dp . sg_2[k])] with dp the
+# players' offset at knot k, bounded below by the linearized
+# |dp|^2 >= d2.  Every row's scale comes in closed form from the per-knot
+# gram terms; the rows carry no equality rows, so every row takes the
+# scalar rho.  SQP iteration 1 is K5's cold schedule; each later one
+# relinearizes, rescales the row duals, reseeds z = A x and runs one warm
+# segment with the carried rho.
+
+def _cmpc_check(name, Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, N,
+                n_obs):
+    B, n2 = g.shape
+    n1 = n2 // 2
+    if n1 != 2 * N or n1 % 8 != 0:
+        raise ValueError(f"{name}: need n1 == 2N, n1 % 8 == 0; got n1={n1}, "
+                         f"N={N}")
+    want = {"Hb": (B, 2, n1, n1), "sg": (B, 2, N, 2, n1),
+            "p0": (B, 2, N, 2), "obs": (B, n_obs, 2),
+            "lo_arena": (B, 2, 2 * N), "hi_arena": (B, 2, 2 * N),
+            "lx": (B, n2), "ux": (B, n2), "U0": (B, n2)}
+    got = {"Hb": Hb, "sg": sg, "p0": p0, "obs": obs, "lo_arena": lo_arena,
+           "hi_arena": hi_arena, "lx": lx, "ux": ux, "U0": U0}
+    for key, shape in want.items():
+        if tuple(got[key].shape) != shape:
+            raise ValueError(f"{name}: {key} must be {shape}, got "
+                             f"{tuple(got[key].shape)}")
+
+
+def cmpc_sqp_stats(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
+                   N: int, n_obs: int, n_seg0: int = 4, it0: int = 37,
+                   sqp_rest: int = 5, it_rest: int = 40, rho: float = 1.0,
+                   sigma: float = 1e-6, alpha: float = 1.6, tol: float = 1e-3,
+                   d2: float = 0.16):
+    """The fused joint SQP solve by device: K4 on CUDA tensors, the plain
+    version on CPU tensors.  Returns x (B, 2 n1) and stats (B, 5) =
+    [converged, prim_res, dual_res, p_sc, d_sc] of the last segment."""
+    _cmpc_check("solve_cmpc_sqp", Hb, g, sg, p0, obs, lo_arena, hi_arena, lx,
+                ux, U0, N, n_obs)
+    f = torch.float32
+    args = [t.to(f).contiguous() for t in (Hb, g, sg, p0, obs, lo_arena,
+                                          hi_arena, lx, ux, U0)]
+    kw = dict(N=N, n_obs=n_obs, n_seg0=n_seg0, it0=it0, sqp_rest=sqp_rest,
+              it_rest=it_rest, rho=rho, sigma=sigma, alpha=alpha, tol=tol,
+              d2=d2)
+    dev = g.device
+    if dev.type == "cuda":
+        from .qp_lanes import MAX_N1_JOINT, MAX_ROWS_JOINT
+        n1, rows = 2 * N, 2 * (2 + n_obs) * N + N
+        if n1 > MAX_N1_JOINT or rows > MAX_ROWS_JOINT:
+            raise ValueError(f"K4 supports n1 = 2N <= {MAX_N1_JOINT} and at "
+                             f"most {MAX_ROWS_JOINT} rows, got n1={n1}, "
+                             f"{rows} rows")
+        from .. import kernels
+        return kernels.cmpc_sqp(*args, **kw)
+    if dev.type != "cpu":
+        raise ValueError(f"K4 runs on cuda or cpu tensors, not {dev}")
+    return _cmpc_plain_stats(*args, **kw)
+
+
+def solve_cmpc_sqp_lanes(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0,
+                         **kw) -> QpSolution:
+    """Fused SQP joint-CMPC solve over B problems, in the JAX function's
+    layouts (the per-player permuted variables of the ``"joint"`` route,
+    n1 = 2N): Hb (B, 2, n1, n1), g (B, 2 n1), sg (B, 2, N, 2, n1) player
+    p's position sensitivity in its own columns, p0 (B, 2, N, 2) the
+    free-response positions, obs (B, n_obs, 2) the keepout centres of both
+    players, lo_arena/hi_arena (B, 2, 2N) ordered [x rows (N); y rows (N)]
+    per player, lx/ux (B, 2 n1), U0 (B, 2 n1) the first linearization
+    point.  K4 on CUDA tensors, :func:`solve_cmpc_sqp_plain` on CPU
+    tensors.  Keyword arguments as :func:`cmpc_sqp_stats` (``N`` and
+    ``n_obs`` required)."""
+    return _solution(*cmpc_sqp_stats(Hb, g, sg, p0, obs, lo_arena, hi_arena,
+                                     lx, ux, U0, **kw))
+
+
+def solve_cmpc_sqp_plain(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0,
+                         **kw) -> QpSolution:
+    """K4's plain PyTorch version on the tensors' own device and dtype (the
+    card only to compare with the kernel).  Keyword arguments as
+    :func:`cmpc_sqp_stats`."""
+    _cmpc_check("solve_cmpc_sqp_plain", Hb, g, sg, p0, obs, lo_arena,
+                hi_arena, lx, ux, U0, kw["N"], kw["n_obs"])
+    return _solution(*_cmpc_plain_stats(Hb, g, sg, p0, obs, lo_arena,
+                                         hi_arena, lx, ux, U0, **kw))
+
+
+@plain_version
+def _cmpc_plain_stats(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
+                      N: int, n_obs: int, n_seg0: int = 4, it0: int = 37,
+                      sqp_rest: int = 5, it_rest: int = 40, rho: float = 1.0,
+                      sigma: float = 1e-6, alpha: float = 1.6,
+                      tol: float = 1e-3, d2: float = 0.16):
+    from .qp_lanes import joint_ax, joint_rho0, joint_segment, joint_stats
+    if Hb.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("solve_cmpc_sqp_plain needs full-f32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    B, n2 = g.shape
+    n1 = n2 // 2
+    M = n_obs
+    m_own = (2 + M) * N
+    dtype, dev = g.dtype, g.device
+    sigma_t = torch.full((), sigma, dtype=dtype, device=dev)
+    alpha_t = torch.full((), alpha, dtype=dtype, device=dev)
+    sgx, sgy = sg[:, :, :, 0], sg[:, :, :, 1]              # (B, 2, N, n1)
+    gxx = (sgx * sgx).sum(-1)                              # (B, 2, N)
+    gxy = (sgx * sgy).sum(-1)
+    gyy = (sgy * sgy).sum(-1)
+    arena_norm = torch.cat([torch.sqrt(gxx), torch.sqrt(gyy)], dim=2)
+    sxx, sxy, syy = (a.sum(1) for a in (gxx, gxy, gyy))    # (B, N)
+    p0x, p0y = p0[..., 0], p0[..., 1]                      # (B, 2, N)
+    ox = obs[..., 0][:, None, :, None]                     # (B, 1, M, 1)
+    oy = obs[..., 1][:, None, :, None]
+    big = torch.full((B, 2, M * N), 1e9, dtype=dtype, device=dev)
+    sign = torch.tensor([2.0, -2.0], dtype=dtype, device=dev)[None, :, None,
+                                                              None]
+
+    def relinearize(x):
+        """The scaled rows at x: A (B, 2, m1, n1), lo, hi, d (B, R)."""
+        xp = x.reshape(B, 2, n1)
+        accx = p0x + _mv(sgx, xp)
+        accy = p0y + _mv(sgy, xp)
+        dpx = accx[:, 0] - accx[:, 1]                      # (B, N)
+        dpy = accy[:, 0] - accy[:, 1]
+        rnp = 2.0 * torch.sqrt(dpx * dpx * sxx + 2.0 * dpx * dpy * sxy
+                               + dpy * dpy * syy)
+        d_pr = 1.0 / torch.clamp(rnp, min=1e-8)
+        gp = dpx * dpx + dpy * dpy - d2
+        rhs_p = (2.0 * (dpx * accx[:, 0] + dpy * accy[:, 0] - dpx * accx[:, 1]
+                        - dpy * accy[:, 1]) - gp
+                 - 2.0 * (dpx * (p0x[:, 0] - p0x[:, 1])
+                          + dpy * (p0y[:, 0] - p0y[:, 1])))
+        dx = accx[:, :, None] - ox                         # (B, 2, M, N)
+        dy = accy[:, :, None] - oy
+        ko_norm = 2.0 * torch.sqrt(dx * dx * gxx[:, :, None]
+                                   + 2.0 * dx * dy * gxy[:, :, None]
+                                   + dy * dy * gyy[:, :, None])
+        gval = dx * dx + dy * dy - d2
+        rhs = (2.0 * (dx * accx[:, :, None] + dy * accy[:, :, None]) - gval
+               - 2.0 * (dx * p0x[:, :, None] + dy * p0y[:, :, None]))
+        d_o = 1.0 / torch.clamp(torch.cat([arena_norm, ko_norm.reshape(
+            B, 2, M * N)], dim=2), min=1e-8)               # (B, 2, m_own)
+        lo_o = torch.cat([lo_arena, rhs.reshape(B, 2, M * N)], dim=2) * d_o
+        hi_o = torch.cat([hi_arena, big], dim=2) * d_o
+        ko = 2.0 * (dx[..., None] * sgx[:, :, None] + dy[..., None]
+                    * sgy[:, :, None])                     # (B, 2, M, N, n1)
+        own = torch.cat([sgx, sgy, ko.reshape(B, 2, M * N, n1)], dim=2) \
+            * d_o[..., None]
+        pair = sign * (dpx[:, None, :, None] * sgx + dpy[:, None, :, None]
+                       * sgy) * d_pr[:, None, :, None]
+        A = torch.cat([own, pair], dim=2)
+        lo = torch.cat([lo_o[:, 0], lo_o[:, 1], rhs_p * d_pr], dim=1)
+        hi = torch.cat([hi_o[:, 0], hi_o[:, 1], 1e9 * d_pr], dim=1)
+        d = torch.cat([d_o[:, 0], d_o[:, 1], d_pr], dim=1)
+        return A, lo, hi, d
+
+    def segment(c, A, lo, hi, iters):
+        return joint_segment(c, Hb, g, A, lo, hi, lx, ux, None, iters, m_own,
+                             sigma_t, alpha_t)
+
+    A, lo, hi, d = relinearize(U0)
+    zv = torch.zeros_like(g)
+    zr = torch.zeros_like(lo)
+    c = (zv, zv, zr, zv, zr, joint_rho0(Hb, rho))
+    res = None
+    for _ in range(n_seg0):
+        c, res = segment(c, A, lo, hi, it0)
+    for _ in range(sqp_rest):
+        x, zx, _, yx, y, rho_s = c
+        A, lo, hi, d_new = relinearize(x)
+        y = y * (d / d_new)
+        d = d_new
+        c, res = segment((x, zx, joint_ax(A, x, m_own), yx, y, rho_s), A,
+                         lo, hi, it_rest)
+    return c[0], joint_stats(res, tol)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import PUCK, SimParams, resolve_device
+from ..plain import plain_version
 from ..state import GameState
 from .sweep import _affine_tables_np, _substep_affine_np, draw_xi, \
     game_rng, populate_noise, repropagation_noise
@@ -305,6 +306,7 @@ def _to_plane(gr: torch.Tensor) -> torch.Tensor:
     return gr.reshape(B, NC, K1).permute(1, 2, 0).contiguous()
 
 
+@plain_version
 def exact_step_plain(T: _Tabs, x, u, meta, dmg, noise=None, rnoise=None,
                      grid_in=None, carry_in=None, mode: str = "exact",
                      cap: int = 49):

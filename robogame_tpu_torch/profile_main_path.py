@@ -1,7 +1,7 @@
 """Where a main path's time goes on the card.
 
     python -m robogame_tpu_torch.profile_main_path \
-        [--path bench|classical_cbf|dmpc]
+        [--path bench|classical_cbf|dmpc|cmpc]
 
 ``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
 schedules held 10 steps, winning_score=4, two-phase exact step) for 200
@@ -14,11 +14,15 @@ CBF filter (512 games, randomized puck starts) for 100 control steps, then
 ``dmpc`` (slice 3): the DMPC vs DMPC matchup (512 games, randomized puck
 starts, ``MpcParams()``) for 100 control steps, then 20 more traced.
 
+``cmpc`` (slice 4): the CMPC vs CMPC matchup (cmpc_vs_cmpc: 512 games,
+randomized puck starts, ``MpcParams()``) for 100 control steps, then 20
+more traced.
+
 Each traces with ``torch.profiler`` and prints the wall time per step, the
 device time per kernel name, the device's busy share of the traced wall
 time, and a split into K1, K2 (skills and CBF: the kernel's template
 argument is its rows per lane, 2 for the skills' 60 rows and 1 for the
-CBF's 20), K3 and the glue kernels.  Needs a CUDA device.
+CBF's 20), K3, K4, K5 and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ B_CL, WARM_CL, STEPS_CL = 512, 100, 20
 GROUPS = (("K1 exact_step", "exact_step_kernel"),
           ("K2 skills (n=30, m=60)", "qp_admm_kernel<2>"),
           ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"),
-          ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"))
+          ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"),
+          ("K4 CMPC SQP (n1=40, m_own=80, m_pair=20)", "cmpc_sqp_kernel"),
+          ("K5 joint QP", "qp_joint_kernel"))
 
 
 def _bench(rt, mc, dev):
@@ -78,7 +84,18 @@ def _dmpc(rt, mc, dev):
     return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
 
 
-PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc}
+def _cmpc(rt, mc, dev):
+    p = rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
+    policy, ps = rt.cmpc_matchup(p, B_CL, device=dev)
+    s = mc._initial_states(p, rt.McParams(
+        num_runs=B_CL, randomize_x0=True, x0_pos_range=(1.0, 0.5),
+        x0_vel_range=2.0), device=dev)
+    s, ps = mc._run_batch(s, p, WARM_CL, policy, ps, device=dev)
+    return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
+
+
+PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc,
+         "cmpc": _cmpc}
 
 
 def main(argv=None) -> None:

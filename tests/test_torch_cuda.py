@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions, on
-the card.
+"""The CUDA kernels K1-K5 against their plain PyTorch versions, on the
+card.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
 Run them on the card with
@@ -9,7 +9,7 @@ Run them on the card with
 The kernels are built with -fmad=false and IEEE division and square
 root.  K1 runs its plain version's f32 operations in the same order, so
 the two are held to be equal bitwise, which also covers chaotic grinding
-games; K2 and K3 are held by tolerance (see their sections below)."""
+games; K2-K5 are held by tolerance (see their sections below)."""
 
 import importlib
 
@@ -281,3 +281,121 @@ def test_k3_refuses_unsupported_shapes(dev):
     with pytest.raises(ValueError, match="CPU tensors only"):
         dm.candidates(*inp, rt.SimParams(), mpc, "plain")
     assert sqp_lanes.MAX_N1 == 64
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the fused joint CMPC SQP and the structured joint QP
+# ---------------------------------------------------------------------------
+#
+# Held by tolerance, as K3: flags agree on >= 99% of the candidates, and
+# where both converged x lies within 2e-3 + 1e-2 |x| on all but 2% of them
+# (the CMPC H has DMPC's structure: a rank-deficient terminal cost plus
+# u_reg I, so a stopped ADMM iterate may move along its flat directions).
+
+def _cmpc_candidates(dev, Bq, N, seed=0, t_grid=8):
+    """Random CMPC instances (arena-scale states, targets and obstacles)
+    for the controller's candidate grid: its inputs for Bq x t_grid
+    candidates."""
+    from robogame_tpu_torch.control import cmpc as cm
+    rng = np.random.default_rng(seed)
+
+    def pos(*shape):
+        return np.stack([rng.uniform(-4.5, 4.5, shape),
+                         rng.uniform(-2.2, 2.2, shape)], -1)
+
+    x1 = np.concatenate([pos(Bq), rng.normal(size=(Bq, 2))], 1)
+    x2 = np.concatenate([pos(Bq), rng.normal(size=(Bq, 2))], 1)
+    f1 = np.concatenate([pos(Bq), 3.0 * rng.normal(size=(Bq, 2))], 1)
+    f2 = np.concatenate([pos(Bq), np.zeros((Bq, 2))], 1)
+    mpc = rt.MpcParams(N=N, t_grid=t_grid)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    st = cm.initial_cmpc_state(mpc, device=dev, batch=(Bq,))
+    return cm, mpc, (st, f(x1), f(x2), f(f1), f(f2), f(pos(Bq, 2)))
+
+
+def _capture(module, name, fn):
+    """The arguments of the first call of ``module.name`` made by fn()."""
+    seen = []
+    route = getattr(module, name)
+
+    def hook(*args, **kw):
+        seen.append((args, kw))
+        return route(*args, **kw)
+
+    setattr(module, name, hook)
+    try:
+        fn()
+    finally:
+        setattr(module, name, route)
+    return seen[0]
+
+
+def _held(xk, sk, xp, sp, off_share=0.02):
+    ck, cp = sk[:, 0] > 0.5, sp[:, 0] > 0.5
+    assert float((ck == cp).float().mean()) >= 0.99
+    both = ck & cp
+    off = both & ((xk - xp).abs() > 2e-3 + 1e-2 * xp.abs()).any(-1)
+    assert int(off.sum()) <= off_share * int(both.sum())
+    assert bool(torch.isfinite(xk).all()) and float(ck.float().mean()) > 0.5
+
+
+def test_k4_agrees_with_plain(dev):
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.ops import sqp_lanes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cm, mpc, inp = _cmpc_candidates(dev, 128, 20)
+    args, kw = _capture(sqp_lanes, "cmpc_sqp_stats", lambda: cm.candidates(
+        *inp, rt.SimParams(), mpc, "fused"))
+    key = (40, 80, 20)
+    before = kernels.cmpc_launches.get(key, 0)
+    xk, sk = sqp_lanes.cmpc_sqp_stats(*args, **kw)
+    assert kernels.cmpc_launches[key] == before + 1
+    xp, sp = sqp_lanes._cmpc_plain_stats(*(a.float().contiguous()
+                                           for a in args), **kw)
+    torch.cuda.synchronize()
+    _held(xk, sk, xp, sp)
+
+
+def test_k5_agrees_with_plain(dev):
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.ops import qp_lanes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cm, mpc, inp = _cmpc_candidates(dev, 128, 20, seed=1)
+    one = mpc.replace(sqp_iters=1)
+    args, kw = _capture(qp_lanes, "joint_qp_stats", lambda: cm.candidates(
+        *inp, rt.SimParams(), one, "joint"))
+    key = (40, 80, 20)
+    before = kernels.joint_launches.get(key, 0)
+    xk, sk = qp_lanes.joint_qp_stats(*args, **kw)
+    assert kernels.joint_launches[key] == before + 1
+    p = qp_lanes.solve_qp_lanes_joint_plain(*args, **kw)
+    sp = torch.stack([p.converged.float(), p.prim_res, p.dual_res], 1)
+    torch.cuda.synchronize()
+    _held(xk, sk, p.x, sp)
+
+
+def test_k4_first_iteration_agrees_with_k5(dev):
+    """sqp_iters=1: the fused solve is one cold scaled joint QP solve, the
+    same algorithm as one K5 launch on the controller's 'joint' route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cm, mpc, inp = _cmpc_candidates(dev, 128, 20, seed=2)
+    one = mpc.replace(sqp_iters=1)
+    cf = cm.candidates(*inp, rt.SimParams(), one, "fused")
+    cj = cm.candidates(*inp, rt.SimParams(), one, "joint")
+    torch.cuda.synchronize()
+    assert float((cf.conv == cj.conv).float().mean()) >= 0.99
+    both = cf.conv & cj.conv
+    off = both & ((cf.U - cj.U).abs() > 2e-3 + 1e-2 * cj.U.abs()).any(-1)
+    assert int(off.sum()) <= 0.02 * int(both.sum())
+
+
+def test_k4_k5_refuse_unsupported_shapes(dev):
+    cm, mpc, inp = _cmpc_candidates(dev, 2, 36, t_grid=2)   # n1 = 72 > 64
+    for route, name in (("fused", "K4"), ("joint", "K5")):
+        with pytest.raises(ValueError, match=f"{name} supports"):
+            cm.candidates(*inp, rt.SimParams(), mpc, route)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        cm.candidates(*inp, rt.SimParams(), mpc, "plain")
+    cm, mpc, inp = _cmpc_candidates(dev, 2, 20, t_grid=2)   # n = 80 > 64
+    with pytest.raises(ValueError, match="route='lanes'"):
+        cm.candidates(*inp, rt.SimParams(), mpc, "lanes")

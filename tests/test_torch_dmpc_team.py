@@ -283,4 +283,4 @@ def test_dmpc_matchup_runs_through_monte_carlo_and_keeps_its_carry():
         assert bool(torch.isfinite(final.x).all())
         np.testing.assert_allclose(final.t.numpy(), steps * TP.dt, rtol=1e-5)
     with pytest.raises(ValueError, match="opponent"):
-        rt.dmpc_matchup(TP, B, "cmpc", device="cpu")
+        rt.dmpc_matchup(TP, B, "classical", device="cpu")

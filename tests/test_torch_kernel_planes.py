@@ -64,13 +64,20 @@ def test_stochastic_exact_with_jax_noise_planes():
                  noise=1.0, two_phase=False)
     tp = rt.SimParams(dtype="float32", engine="pallas_exact",
                       stochastic=True, noise=1.0, two_phase=False)
-    states, u = _pressed_states(jp)
-    planes, _ = jps._to_planes(states, jp)
-    uj = jps._u_plane(jnp.asarray(u), B)
-    npl = jps._noise_plane(states, jp)
-    rpl = jps._rnoise_plane(states, jp)
-    ref = jps._kernel_call(planes, uj, jp, npl, mode="exact",
-                           rnoise_plane=rpl)
+
+    @jax.jit
+    def jax_side():
+        """The JAX planes and kernel call as one jitted program (one
+        compile instead of one per eager op)."""
+        states, u = _pressed_states(jp)
+        planes, _ = jps._to_planes(states, jp)
+        uj = jps._u_plane(jnp.asarray(u), B)
+        npl = jps._noise_plane(states, jp)
+        rpl = jps._rnoise_plane(states, jp)
+        return planes, uj, npl, rpl, jps._kernel_call(
+            planes, uj, jp, npl, mode="exact", rnoise_plane=rpl)
+
+    planes, uj, npl, rpl, ref = jax_side()
     port = tex._kernel_call(tuple(_t(p) for p in planes), _t(uj), tp,
                             _t(npl), mode="exact", rnoise_plane=_t(rpl))
     _close(port, ref, 5e-3, 2e-3)

@@ -7,6 +7,7 @@ free-running steps (5e-4); ``aggregate`` agrees."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -40,7 +41,8 @@ def test_run_batch_matches_jax_from_common_states():
     jp = JParams(dtype="float32", engine="pallas_exact", winning_score=4)
     tp = rt.SimParams(dtype="float32", engine="pallas_exact",
                       winning_score=4)
-    js = jmc._initial_states(jp, jmc.McParams(num_runs=B, randomize_x0=True))
+    js = jax.jit(jmc._initial_states, static_argnums=(0, 1))(
+        jp, jmc.McParams(num_runs=B, randomize_x0=True))
     u_base = np.random.default_rng(0).uniform(
         -8, 8, (N_STEPS // HOLD, B, 4, 2)).astype(np.float32)
     jf, _, _ = jmc._run_batch(js, jp, N_STEPS, _jax_policy,

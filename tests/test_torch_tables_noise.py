@@ -57,15 +57,23 @@ def test_noise_transforms_match_jax_on_same_xi(noise):
     jp = JParams(dtype="float32", stochastic=True, noise=noise)
     tp = SimParams(dtype="float32", stochastic=True, noise=noise)
     G = jp.grid_points
+
+    @jax.jit
+    def jax_side(key):
+        """JAX's draws and transforms for one key, one compile for all."""
+        return (jax.random.normal(key, (G, 4, 4), jnp.float32),
+                jsw.populate_noise(key, jp),
+                jax.random.normal(key, (G + 1, 4, 4), jnp.float32),
+                jsw.repropagation_noise(key, jp, n=G + 1))
+
     keys = jax.random.split(jax.random.PRNGKey(4), 3)
     for key in keys:
-        xi = np.array(jax.random.normal(key, (G, 4, 4), jnp.float32))
-        ref = np.asarray(jsw.populate_noise(key, jp))
+        xi_p, ref_p, xi_r, ref_r = (np.array(a) for a in jax_side(key))
+        xi, ref = xi_p, ref_p
         got = tsw.populate_noise(torch.from_numpy(xi)[None], tp)[0].numpy()
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=1e-6 * np.abs(ref).max())
-        xi = np.array(jax.random.normal(key, (G + 1, 4, 4), jnp.float32))
-        ref = np.asarray(jsw.repropagation_noise(key, jp, n=G + 1))
+        xi, ref = xi_r, ref_r
         got = tsw.repropagation_noise(torch.from_numpy(xi)[None],
                                       tp)[0].numpy()
         np.testing.assert_allclose(got, ref, rtol=0,
@@ -79,21 +87,29 @@ def test_noise_planes_layout_matches_jax():
     B = 3
     jp = JParams(dtype="float32", stochastic=True, noise=1.0)
     G = jp.grid_points
-    states = jax.vmap(lambda k: jps.GameState(
-        x=jnp.zeros((5, 4), jnp.float32), score=jnp.zeros(2, jnp.int32),
-        damage=jnp.zeros((4, 4), jnp.float32), t=jnp.zeros((), jnp.float32),
-        key=k))(jax.random.split(jax.random.PRNGKey(9), B))
-    keys = jax.vmap(jax.random.split)(states.key)
-    pop = np.stack([np.asarray(jsw.populate_noise(k, jp)) for k in keys[:, 1]])
-    k2 = jax.vmap(lambda k: jax.random.fold_in(k, 7))(keys[:, 1])
-    rep = np.stack([np.asarray(jsw.repropagation_noise(k, jp, n=G + 1))
-                    for k in k2])
+
+    @jax.jit
+    def jax_side():
+        """JAX's contributions and planes as one jitted program."""
+        states = jax.vmap(lambda k: jps.GameState(
+            x=jnp.zeros((5, 4), jnp.float32), score=jnp.zeros(2, jnp.int32),
+            damage=jnp.zeros((4, 4), jnp.float32),
+            t=jnp.zeros((), jnp.float32), key=k))(
+                jax.random.split(jax.random.PRNGKey(9), B))
+        keys = jax.vmap(jax.random.split)(states.key)
+        pop = jnp.stack([jsw.populate_noise(keys[b, 1], jp)
+                         for b in range(B)])
+        k2 = jax.vmap(lambda k: jax.random.fold_in(k, 7))(keys[:, 1])
+        rep = jnp.stack([jsw.repropagation_noise(k2[b], jp, n=G + 1)
+                         for b in range(B)])
+        return (pop, rep, jps._noise_plane(states, jp),
+                jps._rnoise_plane(states, jp))
+
+    pop, rep, npl, rpl = (np.array(a) for a in jax_side())
     np.testing.assert_array_equal(
-        tex._noise_plane(torch.from_numpy(pop)).numpy(),
-        np.asarray(jps._noise_plane(states, jp))[:, :, :B])
+        tex._noise_plane(torch.from_numpy(pop)).numpy(), npl[:, :, :B])
     np.testing.assert_array_equal(
-        tex._rnoise_plane(torch.from_numpy(rep)).numpy(),
-        np.asarray(jps._rnoise_plane(states, jp))[:, :, :B])
+        tex._rnoise_plane(torch.from_numpy(rep)).numpy(), rpl[:, :, :B])
 
 
 def test_repropagation_noise_covariance_is_LLt_w2():
