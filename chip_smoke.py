@@ -7,9 +7,9 @@ Phases, each failing loudly (nothing here catches an error):
 
 0. the card's name and power limit (nvidia-smi), then the builds of the
    hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu),
-   K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu) and K5
-   (csrc/qp_joint.cu) from this checkout, one nvcc each, started
-   together;
+   K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu), K5 (csrc/qp_joint.cu)
+   and K6 (csrc/parallel_step.cu) from this checkout, one nvcc each,
+   started together;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
    (b) corner-grinding games (B=1024, pre-ground 26 steps by the kernel),
@@ -67,8 +67,27 @@ Phases, each failing loudly (nothing here catches an error):
    route 'joint' (6 K5 launches a team-step), timed; (f) K4's and K5's
    times per launch beside their bounds and the plain times.
 
+8. slice 5's main path, the parallel-resolution step on K6
+   (``engine="pallas"``): (a) K6 against its plain version in modes full,
+   export (grid and carry too) and resume, bitwise: at B=8192 on
+   Monte-Carlo starts with uniform schedules, on corner-grinding games
+   (B=1024, pre-ground 26 steps by the kernel) that drive the loop to its
+   cap, in stochastic mode with identical noise planes, and noise=0
+   bitwise equal to the deterministic kernel; (b) two-phase equal to
+   one-phase in the kernel through the compacted and the overflow path;
+   (c) the bench workload on engine="pallas" through ``monte_carlo``,
+   timed after a warm-up, with K6's launch counts (export and resume 400
+   each) and phase 2's K1 rate beside it; its first 64 games held against
+   the plain version on the CPU over 40 steps; (d) the stochastic row
+   (B=2048, noise=1.0), timed, and the velocity std at zero input after 8
+   steps within 6% of the analytic value; (e) the sweep engine
+   (``engine="sweep"``, plain PyTorch) on the card, B=2048 x 40 steps,
+   timed, and 64 games x 3 steps held against the CPU from common states;
+   (f) K6's time per control step (export + resume at step 200 of the
+   main path) beside its bound and the plain time.
+
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
-K2 at the skills shape, K2 at the CBF shape, K3, K4, K5); the last line is
+K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 1 before printing any result.
 """
@@ -1196,6 +1215,338 @@ def cmpc_phase(rt, dev, card):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the parallel-resolution step on K6, and the sweep engine
+# ---------------------------------------------------------------------------
+
+B_STOCH = 2048                     # bench_sweep.py's stochastic row
+B_SWEEP, SWEEP_STEPS = 2048, 40    # the sweep engine on the card
+N_CPU6 = 64                        # games of the main path held on the CPU
+K6_DMG_TOL = 5e-4                  # their damage, card against CPU
+SWEEP_X_TOL, SWEEP_DMG_TOL = 1e-4, 1e-5   # sweep per step, card vs CPU
+
+
+def _k6_both(ex, ps, kernels, T, planes, up, mode, cap, npl=None,
+             grid=None, carry=None):
+    """K6 and its plain version on the same card tensors."""
+    k = kernels.parallel_step(T.M6, T.FI, T.SP, T.consts, planes[0], up,
+                              planes[1], planes[2], npl, grid, carry, mode,
+                              cap)
+    q = ps.parallel_step_plain(T, planes[0], up, planes[1], planes[2], npl,
+                               grid, carry, mode, cap)
+    torch.cuda.synchronize()
+    return k, q
+
+
+def _equal_outputs(k, q, mode):
+    same = torch.equal(k[0], q[0]) and torch.equal(k[1], q[1])
+    if mode == "export":
+        same = same and torch.equal(k[2], q[2]) and torch.equal(k[3], q[3])
+    return same
+
+
+def pallas_phase(rt, dev, card, u_uni, k1_rate):
+    """Phase 8: K6 against its plain version, two-phase against one-phase,
+    the bench workload and its stochastic row on engine="pallas", the
+    sweep engine on the card, and K6's time; returns K6's kernels entry."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics import exact_step as ex
+    from robogame_tpu_torch.physics import parallel_step as ps
+    from robogame_tpu_torch.physics.sweep import (_substep_affine_np,
+                                                  game_draws, populate_noise)
+    mc_mod = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
+    P6 = rt.SimParams(engine="pallas", two_phase=False)
+    T = ex._tabs(P6, dev)
+    errs = []
+
+    def every_mode(tag, s, u, params, npl=None):
+        """Modes full, export (grid and carry too) and resume, bitwise."""
+        planes = ex._to_planes(s)
+        up = ex._u_plane(u, s.x.shape[0])
+        kf, qf = _k6_both(ex, ps, kernels, T, planes, up, "full",
+                          params.sweep_iters, npl)
+        ke, qe = _k6_both(ex, ps, kernels, T, planes, up, "export", 1, npl)
+        kr, qr = _k6_both(ex, ps, kernels, T, planes, up, "resume",
+                          params.sweep_iters - 1, None, ke[2], ke[3])
+        diff = max(maxdiff(a, b) for a, b in ((kf[0], qf[0]), (kf[1], qf[1]),
+                                              (ke[2], qe[2]), (ke[3], qe[3]),
+                                              (kr[0], qr[0]), (kr[1], qr[1])))
+        errs.append(diff)
+        trips = float(kf[1][4].max())
+        print(f"phase8 (a) {tag}: full / export / resume max|diff| "
+              f"{diff:.3g}, loop trips mean {float(kf[1][4].mean()):.3f} "
+              f"max {trips:.0f}", flush=True)
+        check(_equal_outputs(kf, qf, "full") and
+              _equal_outputs(ke, qe, "export") and
+              _equal_outputs(kr, qr, "resume"),
+              f"(8a) {tag}: K6 differs from its plain version")
+        return kf, trips
+
+    # ---- (a) K6 against its plain version, every mode ------------------
+    mcp = rt.McParams(num_runs=B_MAIN, randomize_x0=True)
+    s = mc_mod._initial_states(P6, mcp, device=dev)
+    for k in range(30):
+        s = rt.step_batch(s, u_uni[k // HOLD], P6, device=dev)
+    for k in range(30, 33):
+        every_mode(f"uniform B={B_MAIN} step {k}", s, u_uni[k // HOLD], P6)
+        s = rt.step_batch(s, u_uni[k // HOLD], P6, device=dev)
+    Bc = 1024
+    g = torch.Generator().manual_seed(2)
+    corner = (torch.randint(0, 2, (Bc, 1, 2), generator=g) * 16.0
+              - 8.0).expand(Bc, 4, 2).contiguous().to(dev)
+    sc = mc_mod._initial_states(P6, rt.McParams(num_runs=Bc,
+                                                randomize_x0=True), dev)
+    for _ in range(26):
+        sc = rt.step_batch(sc, corner, P6, device=dev)
+    deepest = 0.0
+    for k in range(3):
+        _, trips = every_mode(f"corner B={Bc} step {26 + k}", sc, corner, P6)
+        deepest = max(deepest, trips)
+        sc = rt.step_batch(sc, corner, P6, device=dev)
+    check(deepest >= P6.sweep_iters, "(8a) no corner game reached the cap")
+    pst = P6.replace(stochastic=True, noise=1.0)
+    (xp,), _ = game_draws(sc, (P6.grid_points,))
+    every_mode(f"stochastic corner B={Bc}", sc, corner, pst,
+               ex._noise_plane(populate_noise(xp, pst)))
+    p0 = P6.replace(stochastic=True, noise=0.0)
+    planes = ex._to_planes(sc)
+    up = ex._u_plane(corner, Bc)
+    z0 = ex._noise_plane(populate_noise(xp, p0))
+    det = ps._kernel_call(planes, up, P6)
+    sto = ps._kernel_call(planes, up, p0, z0)
+    check(all(torch.equal(a, b) for a, b in zip(det, sto)),
+          "(8a) noise=0 differs from deterministic")
+    print("phase8 (a) noise=0 == deterministic bitwise", flush=True)
+
+    # ---- (b) two-phase == one-phase in the kernel, both paths -----------
+    pinned_x = sc.x.clone()
+    pin_u = torch.zeros((Bc, 4, 2), device=dev)
+    for pl, (sx, sy) in enumerate([(-1, -1), (-1, 1), (1, -1), (1, 1)]):
+        pinned_x[:, pl] = torch.tensor([4.81 * sx, 2.31 * sy, 0.01 * sx,
+                                        0.01 * sy], device=dev)
+        pin_u[:, pl] = torch.tensor([8.0 * sx, 8.0 * sy], device=dev)
+    pinned = sc._replace(x=pinned_x, score=torch.zeros_like(sc.score))
+    for tag, st, u in (("compact", s, u_uni[3]), ("overflow", pinned, pin_u)):
+        B = st.x.shape[0]
+        planes = ex._to_planes(st)
+        up = ex._u_plane(u, B)
+        (_, m1, _), _, _ = ps._kernel_call(planes, up, P6, mode="export",
+                                           cap=1)
+        n_pend = int(m1[5].sum())
+        check(n_pend > 0, f"(8b) {tag}: no game pending after phase 1")
+        frac = B // (-(-n_pend // ex.BLOCK) * ex.BLOCK) if tag == "compact" \
+            else B // ex.BLOCK
+        p2 = P6.replace(two_phase=True, compact_frac=max(frac, 1))
+        K = ex._compact_lanes(B, p2)
+        one = ps._kernel_call(planes, up, P6)
+        two = ps._twophase_planes(planes, up, p2)
+        torch.cuda.synchronize()
+        undec = (planes[1][0] < P6.winning_score) & \
+            (planes[1][1] < P6.winning_score)
+        rows = [0, 1, 2, 5]             # meta row 4 counts each call's trips
+        check(torch.equal(one[0], two[0]) and torch.equal(one[2], two[2])
+              and torch.equal(one[1][rows], two[1][rows])
+              and torch.equal(one[1][3][undec], two[1][3][undec]),
+              f"(8b) {tag}: two-phase differs from one-phase")
+        if tag == "compact":
+            check(0 < n_pend <= K < B, f"(8b) compact path not taken "
+                  f"({n_pend} pending, K={K})")
+        else:
+            check(n_pend > K, f"(8b) overflow path not taken ({n_pend})")
+        print(f"phase8 (b) {tag}: B={B} K={K} pending={n_pend}: two-phase "
+              f"== one-phase bitwise", flush=True)
+
+    # ---- (c) the main path: the bench workload on engine="pallas" -------
+    pm = rt.SimParams(engine="pallas", winning_score=4, two_phase=True,
+                      phase1_iters=1, compact_frac=16)
+    mc_main = rt.McParams(num_runs=B_MAIN, T=20.0, randomize_x0=True)
+
+    def schedule(ps_, states):
+        k, u_base = ps_
+        return (k + 1, u_base), u_base[k // HOLD]
+
+    warm = rt.monte_carlo(pm, rt.McParams(num_runs=B_MAIN, T=1.0,
+                                          randomize_x0=True),
+                          policy=schedule, policy_state=(0, u_uni),
+                          device=dev)
+    _ = warm.scores.cpu()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = rt.monte_carlo(pm, mc_main, policy=schedule,
+                         policy_state=(0, u_uni), device=dev)
+    scores = res.scores.cpu()
+    wall = time.perf_counter() - t0
+    launches6 = dict(kernels.parallel_launches)
+    launches1 = dict(kernels.launches)
+    rate = B_MAIN * N_STEPS / wall
+    print(f"phase8 (c) main path engine=pallas: B={B_MAIN} x {N_STEPS} "
+          f"steps in {wall:.3f} s wall: {rate:.1f} control-steps/s; "
+          f"engine=pallas_exact (phase 2): {k1_rate:.1f} control-steps/s; "
+          f"K6 / K1 {rate / k1_rate:.4f}  [{card}]", flush=True)
+    print(f"phase8 (c) K6 launches: {launches6}; K1 launches: {launches1}",
+          flush=True)
+    check(launches6["export"] == N_STEPS and launches6["resume"] == N_STEPS
+          and launches6["full"] == 0 and sum(launches1.values()) == 0,
+          "(8c) main path did not run K6's two-phase once a step")
+    check(scores.shape == (B_MAIN, 2) and bool(torch.isfinite(
+        res.damage).all()) and bool(((scores >= 0) &
+                                     (scores <= pm.winning_score)).all()),
+          "(8c) main path outputs malformed")
+    t_fin = res.t_final.cpu()
+    undecided = (scores < pm.winning_score).all(dim=1)
+    check(bool(undecided.any()) and bool(
+        (t_fin[undecided] - N_STEPS * pm.dt).abs().max() < 1e-3),
+        "(8c) undecided games did not run the full game")
+    print(f"phase8 (c) aggregate: {json.dumps(rt.aggregate(res))}",
+          flush=True)
+    mc_ref = rt.McParams(num_runs=N_CPU6, T=2.0, randomize_x0=True)
+    ref_cpu = rt.monte_carlo(pm, mc_ref, policy=schedule,
+                             policy_state=(0, u_uni[:, :N_CPU6].cpu()),
+                             device="cpu")
+    ref_gpu = rt.monte_carlo(pm, mc_ref, policy=schedule,
+                             policy_state=(0, u_uni[:, :N_CPU6]), device=dev)
+    dref = maxdiff(ref_gpu.damage.cpu(), ref_cpu.damage)
+    check(torch.equal(ref_cpu.scores, ref_gpu.scores.cpu()),
+          "(8c) scores differ from the plain version on the CPU")
+    check(dref <= K6_DMG_TOL, f"(8c) damage vs the plain CPU sweep: {dref}")
+    print(f"phase8 (c) check: {N_CPU6} games x 40 steps on the card == "
+          f"plain version on the CPU (scores equal, max|ddmg| {dref:.3g})",
+          flush=True)
+
+    # ---- (d) the stochastic row: B=2048, noise=1.0 ----------------------
+    pn = pm.replace(stochastic=True, noise=1.0)
+    u_st = u_uni[:, :B_STOCH]
+    t0 = time.perf_counter()
+    res_n = rt.monte_carlo(pn, rt.McParams(num_runs=B_STOCH, T=20.0,
+                                           randomize_x0=True),
+                           policy=schedule, policy_state=(0, u_st),
+                           device=dev)
+    _ = res_n.scores.cpu()
+    wall_n = time.perf_counter() - t0
+    check(bool(torch.isfinite(res_n.damage).all()),
+          "(8d) stochastic row malformed")
+    n_v = 8
+    pv = P6.replace(stochastic=True, noise=0.8)
+    sv = rt.initial_state(pv, seed=list(range(1, B_STOCH + 1)), device=dev)
+    u0 = torch.zeros((B_STOCH, 4, 2), device=dev)
+    for _ in range(n_v):
+        sv = rt.step_batch(sv, u0, pv, device=dev)
+    F, _, L = _substep_affine_np(pv)
+    C = (pv.noise ** 2) * (L @ L.T)
+    V = np.zeros((4, 4))
+    for _ in range(n_v * pv.grid_points):
+        V = F[0] @ V @ F[0].T + C
+    sig_v = math.sqrt(V[2, 2])
+    v_std = float(sv.x[:, :4, 2:4].std())
+    rel = abs(v_std - sig_v) / sig_v
+    print(f"phase8 (d) stochastic row: B={B_STOCH} x {N_STEPS} steps, "
+          f"noise=1.0, in {wall_n:.3f} s wall: "
+          f"{B_STOCH * N_STEPS / wall_n:.1f} control-steps/s; velocity std "
+          f"at zero input after {n_v} steps {v_std:.5f} vs analytic "
+          f"{sig_v:.5f} ({rel:.4f})  [{card}]", flush=True)
+    check(rel < 0.06, f"(8d) velocity std off the analytic value by {rel}")
+
+    # ---- (e) the sweep engine on the card -------------------------------
+    psw = rt.SimParams(engine="sweep", winning_score=4)
+    ss = mc_mod._initial_states(psw, rt.McParams(num_runs=B_SWEEP,
+                                                 randomize_x0=True), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(SWEEP_STEPS):
+        ss = rt.step_batch(ss, u_uni[k // HOLD, :B_SWEEP], psw, device=dev)
+    _ = ss.score.cpu()
+    wall_s = time.perf_counter() - t0
+    worst = (0.0, 0.0)
+    held = ss
+    for k in range(SWEEP_STEPS, SWEEP_STEPS + 3):
+        sub = rt.GameState(*(a[:N_CPU6] for a in held))
+        u = u_uni[k // HOLD, :N_CPU6]
+        gcard = rt.step_batch(sub, u, psw, device=dev)
+        gcpu = rt.step_batch(rt.GameState(*(a.cpu() for a in sub)), u.cpu(),
+                             psw, device="cpu")
+        check(torch.equal(gcard.score.cpu(), gcpu.score),
+              "(8e) sweep scores differ between the card and the CPU")
+        worst = (max(worst[0], maxdiff(gcard.x.cpu(), gcpu.x)),
+                 max(worst[1], maxdiff(gcard.damage.cpu(), gcpu.damage)))
+        held = rt.step_batch(held, u_uni[k // HOLD, :B_SWEEP], psw,
+                             device=dev)
+    check(worst[0] <= SWEEP_X_TOL and worst[1] <= SWEEP_DMG_TOL,
+          f"(8e) sweep on the card vs the CPU: {worst}")
+    print(f"phase8 (e) sweep engine: B={B_SWEEP} x {SWEEP_STEPS} steps in "
+          f"{wall_s:.3f} s wall ({B_SWEEP * SWEEP_STEPS / wall_s:.1f} "
+          f"control-steps/s); {N_CPU6} games x 3 steps card vs CPU: scores "
+          f"equal, max|dx| {worst[0]:.3g}, max|ddmg| {worst[1]:.3g}  "
+          f"[{card}]", flush=True)
+
+    # ---- (f) K6's time per control step at the main path's shapes -------
+    sm = mc_mod._initial_states(pm, mc_main, device=dev)
+    sm, _ = mc_mod._run_batch(sm, pm, 200, schedule, (0, u_uni), device=dev)
+    planes = ex._to_planes(sm)
+    up = ex._u_plane(u_uni[20], B_MAIN)
+    run_export = lambda: kernels.parallel_step(
+        T.M6, T.FI, T.SP, T.consts, planes[0], up, planes[1], planes[2],
+        None, None, None, "export", 1)
+    for _ in range(3):
+        run_export()
+    exp_ms, (xo, aux, grid, carry) = cuda_ms(run_export, reps=20)
+    n_pend = int(aux[5].sum())
+    K = ex._compact_lanes(B_MAIN, pm)
+    K = K if n_pend <= K else B_MAIN        # the overflow guard's resume
+    idx = torch.argsort(-aux[5], stable=True)[:K]
+    g_in = [a[:, idx].contiguous() for a in (*planes, up, carry)]
+    grid_k = grid[..., idx].contiguous()
+    rest = pm.sweep_iters - pm.phase1_iters
+    run_resume = lambda: kernels.parallel_step(
+        T.M6, T.FI, T.SP, T.consts, g_in[0], g_in[3], g_in[1], g_in[2], None,
+        grid_k, g_in[4], "resume", rest)
+    for _ in range(3):
+        run_resume()
+    res_ms, (_, aux_r, _, _) = cuda_ms(run_resume, reps=20)
+    pl_exp_ms, pl_exp = cuda_ms(lambda: ps.parallel_step_plain(
+        T, planes[0], up, planes[1], planes[2], None, None, None, "export",
+        1))
+    pl_res_ms, pl_res = cuda_ms(lambda: ps.parallel_step_plain(
+        T, g_in[0], g_in[3], g_in[1], g_in[2], None, grid_k, g_in[4],
+        "resume", rest))
+    errf = max(maxdiff(xo, pl_exp[0]), maxdiff(aux, pl_exp[1]),
+               maxdiff(grid, pl_exp[2]), maxdiff(carry, pl_exp[3]),
+               maxdiff(aux_r, pl_res[1]))
+    check(errf == 0.0, f"(8f) K6 vs plain {errf}")
+    errs.append(errf)
+    # bound: each input read once, each output written once (f32) ...
+    K1c = pm.grid_points + 1
+    table = (T.M6.numel() + T.FI.numel() + T.SP.numel()) * 4
+    bytes_exp = 4 * B_MAIN * (20 + 10 + 8 + 16 + 20 + 24 + 20 * K1c + 32)
+    bytes_res = 4 * K * (20 + 10 + 8 + 16 + 20 * K1c + 32 + 20 + 24)
+    nbytes = bytes_exp + bytes_res + 2 * table
+    # ... and a lower count of the f32 operations, as phase 3 counts K1's:
+    # the populate (6 mul + 5 add per grid cell) and ~200 per loop
+    # iteration (one resolved event's two partial RK4s and impulse);
+    # detect and the tails not counted
+    iters = float(aux[4].sum()) + float(aux_r[4].sum())
+    ops = 11 * 20 * K1c * B_MAIN + 200 * iters
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_PER_S * 1e3
+    print(f"phase8 (f) K6 at B={B_MAIN} (step 200, pending {n_pend}, resume "
+          f"over {K}, {iters:.0f} loop iterations): export {exp_ms:.4f} ms + "
+          f"resume {res_ms:.4f} ms; plain {pl_exp_ms:.1f} + {pl_res_ms:.1f} "
+          f"ms; bound {t_bytes:.4f} ms bytes / {t_ops:.4f} ms ops; library "
+          f"none  [{card}]", flush=True)
+    return {
+        "name": "K6 parallel_step (export + resume per step)",
+        "route": "cuda",
+        "source": "robogame_tpu_torch/csrc/parallel_step.cu",
+        "replaces": "robogame_tpu/physics/pallas_step.py:130",
+        "launches": sum(launches6.values()),
+        "max_abs_err": max(errs),
+        "ms": exp_ms + res_ms,
+        "plain_ms": pl_exp_ms + pl_res_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1218,7 +1569,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase0 build K1-K5: {build_s:.2f} s (nvcc seconds "
+    print(f"phase0 build K1-K6: {build_s:.2f} s (nvcc seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
 
     P1 = rt.SimParams(engine="pallas_exact", two_phase=False)
@@ -1451,7 +1802,8 @@ def main() -> int:
     k2 = closed_loop_and_k2(rt, dev, card)
     k3 = dmpc_phase(rt, dev, card)
     k45 = cmpc_phase(rt, dev, card)
-    print(json.dumps({"kernels": [kern, *k2, k3, *k45]}))
+    k6 = pallas_phase(rt, dev, card, u_uni, rate)
+    print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,7 +54,9 @@ from .ops.qp_lanes import (solve_qp_lanes, solve_qp_lanes_joint,
 from .ops.sqp_lanes import (solve_cmpc_sqp_lanes, solve_cmpc_sqp_plain,
                             solve_dmpc_sqp_lanes, solve_dmpc_sqp_plain)
 from .parallel.monte_carlo import McParams, McResult, aggregate, monte_carlo
-from .physics.exact_step import step_batch
+from .physics.parallel_step import parallel_step_plain
+from .physics.step import step_batch
+from .physics.sweep import step_sweep
 from .state import (GameState, SimStateView, from_numpy, from_vector,
                     initial_state, to_numpy, to_vector, undecided)
 
@@ -68,11 +70,12 @@ __all__ = [
     "compute_control", "compute_control_batch", "dmpc_matchup",
     "dmpc_state_from_numpy", "dmpc_state_to_numpy", "from_numpy",
     "from_vector", "initial_cmpc_state", "initial_state", "initial_team_state",
-    "min_time_traj", "min_time_traj_batch", "monte_carlo", "resolve_device",
+    "min_time_traj", "min_time_traj_batch", "monte_carlo",
+    "parallel_step_plain", "resolve_device",
     "safe_control", "safe_control_batch", "solve_cmpc_sqp_lanes",
     "solve_cmpc_sqp_plain", "solve_dmpc_sqp_lanes", "solve_dmpc_sqp_plain",
     "solve_qp", "solve_qp_lanes", "solve_qp_lanes_joint",
-    "solve_qp_lanes_joint_plain", "step_batch", "team_policy",
+    "solve_qp_lanes_joint_plain", "step_batch", "step_sweep", "team_policy",
     "team_policy_batch", "team_state_from_numpy", "team_state_to_numpy",
     "to_numpy", "to_vector", "undecided",
 ]

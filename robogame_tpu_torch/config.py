@@ -4,8 +4,9 @@ Field for field the same as the JAX package's ``config.py`` so that a
 configuration carries across unchanged; only ``jdtype`` becomes
 :attr:`SimParams.torch_dtype`.  ``engine`` keeps its string values; the
 port's step implements ``"pallas_exact"`` (the event-order-exact step, run
-by the hand-written CUDA kernel in ``csrc/exact_step.cu``) and raises
-``NotImplementedError`` for the others.
+by the hand-written CUDA kernel in ``csrc/exact_step.cu``), ``"pallas"``
+(the parallel-resolution step, ``csrc/parallel_step.cu``) and ``"sweep"``
+(plain PyTorch), and raises ``NotImplementedError`` for ``"event"``.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (:func:`resolve_device`); without a card they raise instead of silently
@@ -73,11 +74,14 @@ class SimParams:
     stochastic: bool = False
     # "event" | "sweep" | "pallas" | "pallas_exact"; the port's step runs
     # "pallas_exact" (event-order-exact: one globally-earliest event per
-    # game per loop iteration, sequential feedback re-propagation)
+    # game per loop iteration, sequential feedback re-propagation), "pallas"
+    # (parallel resolution: every conflict component's earliest event per
+    # iteration, feedback-free re-propagation) and "sweep" (the same
+    # algorithm as plain tensor ops, keeping untouched entities' slots)
     engine: str = "event"
     sweep_iters: int = 50
     # Two-phase event loop: phase 1 runs every game to phase1_iters
-    # events, the games still pending are compacted into B/compact_frac
+    # events (loop iterations for "pallas"), the games still pending are compacted into B/compact_frac
     # lanes and finished at full depth (a full-batch resume runs instead
     # when more games are pending), so two-phase equals one-phase.
     two_phase: bool = True

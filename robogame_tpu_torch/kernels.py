@@ -9,10 +9,12 @@ source and the flags), and bound with ``ctypes``:
 * K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve;
 * K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve;
 * K4, ``csrc/cmpc_sqp.cu``: the fused joint two-player CMPC SQP solve;
-* K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve.
+* K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve;
+* K6, ``csrc/parallel_step.cu``: the parallel-resolution control step.
 
 K4 and K5 share their ADMM and block-Schur machinery in
-``csrc/joint_schur.cuh``; a library's name hashes its source with the
+``csrc/joint_schur.cuh``, K1 and K6 their constants, RK4 and detect in
+``csrc/step_common.cuh``; a library's name hashes its source with the
 headers it includes.
 
 :func:`build_all` starts one ``nvcc`` per source that is not built yet, all
@@ -26,7 +28,8 @@ square root, no contraction into FMAs).
 Launch counters, added to only by the launch paths below: ``launches``
 holds K1's per mode, ``qp_launches`` K2's per (n, m) shape,
 ``sqp_launches`` K3's per (n1, m_own) shape, ``cmpc_launches`` K4's and
-``joint_launches`` K5's per (n1, m_own, m_pair) shape.
+``joint_launches`` K5's per (n1, m_own, m_pair) shape,
+``parallel_launches`` K6's per mode.
 """
 
 from __future__ import annotations
@@ -47,16 +50,21 @@ SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
            "qp_admm": _PKG / "csrc" / "qp_admm.cu",
            "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu",
            "cmpc_sqp": _PKG / "csrc" / "cmpc_sqp.cu",
-           "qp_joint": _PKG / "csrc" / "qp_joint.cu"}
+           "qp_joint": _PKG / "csrc" / "qp_joint.cu",
+           "parallel_step": _PKG / "csrc" / "parallel_step.cu"}
 # the headers each source includes (hashed with it)
-HEADERS = {"cmpc_sqp": [_PKG / "csrc" / "joint_schur.cuh"],
-           "qp_joint": [_PKG / "csrc" / "joint_schur.cuh"]}
+HEADERS = {"exact_step": [_PKG / "csrc" / "step_common.cuh"],
+           "cmpc_sqp": [_PKG / "csrc" / "joint_schur.cuh"],
+           "qp_joint": [_PKG / "csrc" / "joint_schur.cuh"],
+           "parallel_step": [_PKG / "csrc" / "step_common.cuh"]}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
+_PARALLEL_MODE_ID = {"full": 0, "export": 1, "resume": 2}
+parallel_launches = {mode: 0 for mode in _PARALLEL_MODE_ID}
 qp_launches: dict = {}
 sqp_launches: dict = {}
 cmpc_launches: dict = {}
@@ -66,8 +74,9 @@ _libs: dict = {}
 
 
 def reset_launches() -> None:
-    for mode in launches:
-        launches[mode] = 0
+    for counts in (launches, parallel_launches):
+        for mode in counts:
+            counts[mode] = 0
     for counts in (qp_launches, sqp_launches, cmpc_launches, joint_launches):
         counts.clear()
 
@@ -135,6 +144,7 @@ _SIGNATURES = {
     "dmpc_sqp": ("rg_dmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
     "cmpc_sqp": ("rg_cmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
     "qp_joint": ("rg_qp_joint", [_P] * 9 + [_I] * 6 + [_F] * 6 + [_P]),
+    "parallel_step": ("rg_parallel_step", [_P] * 14 + [_I] * 4 + [_P]),
 }
 
 
@@ -201,6 +211,52 @@ def exact_step(M6, consts: np.ndarray, x, u, meta, dmg, noise, rnoise,
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     launches[mode] += 1
+    return xout, aux, grid, carry
+
+
+def parallel_step(M6, FI, SP, consts: np.ndarray, x, u, meta, dmg, noise,
+                  grid_in, carry_in, mode: str, cap: int):
+    """Launch K6 over B games on the current stream.  Returns (xout (20,B),
+    aux (24,B), grid (20,G+1,B), carry (32,B) or None); ``grid_in`` is
+    copied, not modified."""
+    dev = x.device
+    B = x.shape[1]
+    K1 = M6.shape[1]
+    if mode not in _PARALLEL_MODE_ID:
+        raise ValueError(f"K6 mode must be one of {tuple(_PARALLEL_MODE_ID)}"
+                         f", got {mode!r}")
+    for name, t, shape in (("M6", M6, (20, K1, 6)), ("FI", FI, (80, K1)),
+                           ("SP", SP, (40, K1)), ("x", x, (20, B)),
+                           ("u", u, (10, B)), ("meta", meta, (8, B)),
+                           ("dmg", dmg, (16, B))):
+        _check(name, t, shape, dev)
+    if noise is not None:
+        _check("noise", noise, (20, K1, B), dev)
+    if mode == "resume":
+        _check("grid_in", grid_in, (20, K1, B), dev)
+        _check("carry_in", carry_in, (32, B), dev)
+        grid = grid_in.clone()
+    else:
+        grid = torch.empty((20, K1, B), dtype=torch.float32, device=dev)
+    xout = torch.empty((20, B), dtype=torch.float32, device=dev)
+    aux = torch.empty((24, B), dtype=torch.float32, device=dev)
+    carry = (torch.empty((32, B), dtype=torch.float32, device=dev)
+             if mode == "export" else None)
+    if B == 0:
+        return xout, aux, grid, carry
+    consts = np.ascontiguousarray(consts, dtype=np.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("parallel_step").rg_parallel_step(
+            consts.ctypes.data, _ptr(M6), _ptr(FI), _ptr(SP), _ptr(x),
+            _ptr(u), _ptr(meta), _ptr(dmg),
+            _ptr(noise if mode != "resume" else None), _ptr(grid),
+            _ptr(carry_in if mode == "resume" else None), _ptr(xout),
+            _ptr(aux), _ptr(carry), B, K1, _PARALLEL_MODE_ID[mode],
+            int(cap), stream)
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: cudaError {err}")
+    parallel_launches[mode] += 1
     return xout, aux, grid, carry
 
 

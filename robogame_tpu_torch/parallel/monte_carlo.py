@@ -1,8 +1,9 @@
 """Batched Monte-Carlo game sweeps.
 
 All games of a sweep step in lockstep as one batch: a host loop over
-control steps, each step one :func:`..physics.exact_step.step_batch`
-(the K1 kernel on the card).  Sharding over several cards and per-step
+control steps, each step one :func:`..physics.step.step_batch` (on the
+card, K1 for ``engine="pallas_exact"``, K6 for ``engine="pallas"``; the
+sweep engine is plain PyTorch).  Sharding over several cards and per-step
 logs are not ported yet.
 """
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import SimParams, resolve_device
-from ..physics.exact_step import step_batch
+from ..physics.step import step_batch
 from ..state import GameState, initial_state
 
 

@@ -40,11 +40,11 @@ import functools
 import numpy as np
 import torch
 
-from ..config import PUCK, SimParams, resolve_device
+from ..config import PUCK, SimParams
 from ..plain import plain_version
 from ..state import GameState
-from .sweep import _affine_tables_np, _substep_affine_np, draw_xi, \
-    game_rng, populate_noise, repropagation_noise
+from .sweep import _affine_tables_np, _substep_affine_np, game_draws, \
+    populate_noise, repropagation_noise
 
 NC = 20              # state components: 5 entities x 4
 E = 5
@@ -74,9 +74,9 @@ def _substep_scalars(params: SimParams):
 @functools.lru_cache(maxsize=16)
 def _tables(key):
     """Per-component affine tables M (20, G+1, 32) mapping [x(20); u(10);
-    pad 2] to grid column values, and the z tables FI (80, G+1), SP
-    (40, G+1) of the parallel-resolution step (unused by the exact step),
-    float32 numpy."""
+    pad 2] to grid column values, and the z tables FI (80, G+1) = Finvpow
+    and SP (40, G+1) = Spow of the parallel-resolution step (K6,
+    ``parallel_step.py``), float32 numpy."""
     params = SimParams(**dict(key))
     G = params.grid_points
     Fpow, Spow, _ = _affine_tables_np(params)      # (G+1,5,4,4), (G+1,5,4,2)
@@ -144,12 +144,16 @@ def _consts(params: SimParams) -> np.ndarray:
 
 
 class _Tabs:
-    """Per-(params, device) constants of K1: the sparse populate table
-    and the f32 scalars (as numpy for the kernel, as tensors here)."""
+    """Per-(params, device) constants of K1 and K6: the sparse populate
+    table, K6's z tables and the f32 scalars (as numpy for the kernels, as
+    tensors here)."""
 
     def __init__(self, params: SimParams, device: torch.device):
         self.G = params.grid_points
         self.M6 = torch.from_numpy(_sparse_M(params)).to(device)
+        _, FI, SP = _tables(_table_key(params))
+        self.FI = torch.from_numpy(FI).to(device)              # (80, G+1)
+        self.SP = torch.from_numpy(SP).to(device)              # (40, G+1)
         self.consts = _consts(params)
         c = dict(zip(CONST_FIELDS, self.consts.tolist()))
         self.c = c
@@ -494,35 +498,44 @@ def exact_step_plain(T: _Tabs, x, u, meta, dmg, noise=None, rnoise=None,
         role_j = xj_base[:, :, None].repeat(1, 1, G + 1)
         ri, rj = xi_base, xj_base
         k0 = int(torch.where(live, base_new, G + 1).min())
+        # only the branches some live game takes are computed (the others
+        # would be selected away)
+        pairs = bool((live & is_pair).any())
+        walls = bool((live & ~is_pair).any())
         for k in range(k0 + 1, G + 1):
             pi = torch.cat([ri[:, :2] + fa_i[:, None] * ri[:, 2:]
                             + su_i[:, :2],
                             fb_i[:, None] * ri[:, 2:] + su_i[:, 2:]], dim=1)
-            pj = torch.cat([rj[:, :2] + fa_j[:, None] * rj[:, 2:]
-                            + su_j[:, :2],
-                            fb_j[:, None] * rj[:, 2:] + su_j[:, 2:]], dim=1)
             if rn is not None:
                 pi = pi + rn[bi, a, :, k]
-                pj = pj + rn[bi, e_j, :, k]
-            dx = pj[:, 0] - pi[:, 0]
-            dy = pj[:, 1] - pi[:, 1]
-            ov = rr - torch.sqrt(dx * dx + dy * dy)
-            go = ov > 0
-            cie = torch.where(go, bri * ov, 0.0)
-            cje = torch.where(go, brj * ov, 0.0)
-            wx, wy = wall_fix(pi[:, 0], pi[:, 1])
-            ci_x = torch.where(is_pair, pi[:, 0] - cie * dx, wx)
-            ci_y = torch.where(is_pair, pi[:, 1] - cie * dy, wy)
             gate = live & (k > base_new)
+            if walls:
+                ci_x, ci_y = wall_fix(pi[:, 0], pi[:, 1])
+            if pairs:
+                pj = torch.cat([rj[:, :2] + fa_j[:, None] * rj[:, 2:]
+                                + su_j[:, :2],
+                                fb_j[:, None] * rj[:, 2:] + su_j[:, 2:]],
+                               dim=1)
+                if rn is not None:
+                    pj = pj + rn[bi, e_j, :, k]
+                dx = pj[:, 0] - pi[:, 0]
+                dy = pj[:, 1] - pi[:, 1]
+                ov = rr - torch.sqrt(dx * dx + dy * dy)
+                go = ov > 0
+                cie = torch.where(go, bri * ov, 0.0)
+                cje = torch.where(go, brj * ov, 0.0)
+                px, py = pi[:, 0] - cie * dx, pi[:, 1] - cie * dy
+                ci_x = torch.where(is_pair, px, ci_x) if walls else px
+                ci_y = torch.where(is_pair, py, ci_y) if walls else py
+                rj = torch.where((gate & is_pair)[:, None],
+                                 torch.stack([pj[:, 0] + cje * dx,
+                                              pj[:, 1] + cje * dy,
+                                              pj[:, 2], pj[:, 3]], dim=1), rj)
+                role_j[:, :, k] = rj
             ri = torch.where(gate[:, None],
                              torch.stack([ci_x, ci_y, pi[:, 2], pi[:, 3]],
                                          dim=1), ri)
-            rj = torch.where((gate & is_pair)[:, None],
-                             torch.stack([pj[:, 0] + cje * dx,
-                                          pj[:, 1] + cje * dy,
-                                          pj[:, 2], pj[:, 3]], dim=1), rj)
             role_i[:, :, k] = ri
-            role_j[:, :, k] = rj
         rowm = (T.k[None, :] >= base_new[:, None])[:, None, :]   # (B,1,G+1)
         gr[bi, a] = torch.where(live[:, None, None] & rowm, role_i,
                                 gr[bi, a])
@@ -693,16 +706,7 @@ def _noise_planes(states: GameState, params: SimParams):
     depends on its own key only (one stream per game: a host loop over the
     batch)."""
     G = params.grid_points
-    keys = states.key.cpu()
-    xp, xr = [], []
-    for seed, ctr in keys.tolist():
-        rng = game_rng(seed, ctr + 1)
-        xp.append(draw_xi(rng, G))
-        xr.append(draw_xi(rng, G + 1))
-    dev = states.x.device
-    xp = torch.stack(xp).to(dev)
-    xr = torch.stack(xr).to(dev)
-    new_keys = states.key + torch.tensor([0, 1], device=dev)
+    (xp, xr), new_keys = game_draws(states, (G, G + 1))
     return (_noise_plane(populate_noise(xp, params)),
             _rnoise_plane(repropagation_noise(xr, params)), new_keys)
 
@@ -719,38 +723,3 @@ def _from_planes(planes, states: GameState, new_keys,
         t=meta[2].to(dt),
         key=new_keys,
     )
-
-
-def _check_device(t: torch.Tensor, dev: torch.device, what: str):
-    if t.device.type != dev.type or (dev.index is not None
-                                     and t.device.index != dev.index):
-        raise ValueError(f"{what} lie on {t.device}, the step was asked to "
-                         f"run on {dev}")
-
-
-def step_batch(states: GameState, controls: torch.Tensor,
-               params: SimParams, device="cuda") -> GameState:
-    """One batched control step (``engine="pallas_exact"``): states are
-    batch-leading, controls (B, 4, 2).  Runs on ``device`` (cuda unless
-    the caller asks for the CPU); the states and controls must lie there.
-    Decided games (a score at winning_score) keep their state."""
-    dev = resolve_device(device)
-    if params.engine != "pallas_exact":
-        raise NotImplementedError(
-            f"engine {params.engine!r} is not ported yet; the port's step "
-            "runs engine='pallas_exact'")
-    _check_device(states.x, dev, "states")
-    _check_device(controls, dev, "controls")
-    B = states.score.shape[0]
-    planes = _to_planes(states)
-    u = _u_plane(controls, B)
-    npl = rpl = None
-    new_keys = states.key
-    if params.stochastic:
-        npl, rpl, new_keys = _noise_planes(states, params)
-    if params.two_phase:
-        out = _twophase_planes_exact(planes, u, params, npl, rpl)
-    else:
-        out = _kernel_call(planes, u, params, npl, mode="exact",
-                           rnoise_plane=rpl)
-    return _from_planes(out, states, new_keys, params)

@@ -1,7 +1,7 @@
 """Where a main path's time goes on the card.
 
     python -m robogame_tpu_torch.profile_main_path \
-        [--path bench|classical_cbf|dmpc|cmpc]
+        [--path bench|classical_cbf|dmpc|cmpc|pallas]
 
 ``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
 schedules held 10 steps, winning_score=4, two-phase exact step) for 200
@@ -18,11 +18,15 @@ starts, ``MpcParams()``) for 100 control steps, then 20 more traced.
 randomized puck starts, ``MpcParams()``) for 100 control steps, then 20
 more traced.
 
+``pallas`` (slice 5): the bench workload on the parallel-resolution step
+(``engine="pallas"``, two-phase on K6) for 200 control steps, then 40
+more traced.
+
 Each traces with ``torch.profiler`` and prints the wall time per step, the
 device time per kernel name, the device's busy share of the traced wall
 time, and a split into K1, K2 (skills and CBF: the kernel's template
 argument is its rows per lane, 2 for the skills' 60 rows and 1 for the
-CBF's 20), K3, K4, K5 and the glue kernels.  Needs a CUDA device.
+CBF's 20), K3, K4, K5, K6 and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,11 +46,12 @@ GROUPS = (("K1 exact_step", "exact_step_kernel"),
           ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"),
           ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"),
           ("K4 CMPC SQP (n1=40, m_own=80, m_pair=20)", "cmpc_sqp_kernel"),
-          ("K5 joint QP", "qp_joint_kernel"))
+          ("K5 joint QP", "qp_joint_kernel"),
+          ("K6 parallel_step", "parallel_step_kernel"))
 
 
-def _bench(rt, mc, dev):
-    p = rt.SimParams(engine="pallas_exact", winning_score=4, two_phase=True,
+def _bench(rt, mc, dev, engine="pallas_exact"):
+    p = rt.SimParams(engine=engine, winning_score=4, two_phase=True,
                      phase1_iters=1, compact_frac=16)
     g = torch.Generator().manual_seed(0)
     n_rows = (200 + STEPS) // HOLD + 1
@@ -94,8 +99,12 @@ def _cmpc(rt, mc, dev):
     return p, policy, s, ps, B_CL, WARM_CL, STEPS_CL
 
 
+def _pallas(rt, mc, dev):
+    return _bench(rt, mc, dev, engine="pallas")
+
+
 PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc,
-         "cmpc": _cmpc}
+         "cmpc": _cmpc, "pallas": _pallas}
 
 
 def main(argv=None) -> None:

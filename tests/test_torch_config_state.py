@@ -168,4 +168,4 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.initial_state(p)
     with pytest.raises(NotImplementedError):
-        rt.step_batch(s, u, p.replace(engine="sweep"), device="cpu")
+        rt.step_batch(s, u, p.replace(engine="event"), device="cpu")

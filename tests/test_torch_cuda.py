@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions, on the
+"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the
 card.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
@@ -7,9 +7,10 @@ Run them on the card with
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 The kernels are built with -fmad=false and IEEE division and square
-root.  K1 runs its plain version's f32 operations in the same order, so
-the two are held to be equal bitwise, which also covers chaotic grinding
-games; K2-K5 are held by tolerance (see their sections below)."""
+root.  K1 and K6 run their plain versions' f32 operations in the same
+order, so each is held to be equal to its plain version bitwise, which
+also covers chaotic grinding games; K2-K5 are held by tolerance (see
+their sections below)."""
 
 import importlib
 
@@ -399,3 +400,109 @@ def test_k4_k5_refuse_unsupported_shapes(dev):
     cm, mpc, inp = _cmpc_candidates(dev, 2, 20, t_grid=2)   # n = 80 > 64
     with pytest.raises(ValueError, match="route='lanes'"):
         cm.candidates(*inp, rt.SimParams(), mpc, "lanes")
+
+
+# ---------------------------------------------------------------------------
+# K6: the parallel-resolution step against its plain version
+# ---------------------------------------------------------------------------
+#
+# K6 runs its plain version's f32 operations in the same order (-fmad=false,
+# IEEE division and square root), so the two are held to be equal bitwise.
+
+from robogame_tpu_torch.physics import parallel_step as pst  # noqa: E402
+
+P6 = rt.SimParams(engine="pallas", two_phase=False)
+
+
+def _corner_states6(dev, B, steps):
+    g = torch.Generator().manual_seed(1)
+    u = (torch.randint(0, 2, (B, 1, 2), generator=g) * 16.0
+         - 8.0).expand(B, 4, 2).contiguous().to(dev)
+    s = mc._initial_states(P6, rt.McParams(num_runs=B, randomize_x0=True),
+                           dev)
+    for _ in range(steps):
+        s = rt.step_batch(s, u, P6, device=dev)
+    return s, u
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_k6_equals_plain_in_every_mode(dev, stochastic):
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics.sweep import game_draws, populate_noise
+    B = 256
+    s, u = _corner_states6(dev, B, 27)
+    p = P6.replace(stochastic=stochastic, noise=1.0 if stochastic else 0.0)
+    planes = ex._to_planes(s)
+    up = ex._u_plane(u, B)
+    npl = None
+    if stochastic:
+        (xp,), _ = game_draws(s, (p.grid_points,))
+        npl = ex._noise_plane(populate_noise(xp, p))
+    T = ex._tabs(p, dev)
+    n0 = dict(kernels.parallel_launches)
+    for mode, cap in (("full", 50), ("export", 1)):
+        k = kernels.parallel_step(T.M6, T.FI, T.SP, T.consts, planes[0], up,
+                                  planes[1], planes[2], npl, None, None,
+                                  mode, cap)
+        q = pst.parallel_step_plain(T, planes[0], up, planes[1], planes[2],
+                                    npl, None, None, mode, cap)
+        assert torch.equal(k[0], q[0]) and torch.equal(k[1], q[1])
+        if mode == "export":
+            assert torch.equal(k[2], q[2]) and torch.equal(k[3], q[3])
+            kr = kernels.parallel_step(T.M6, T.FI, T.SP, T.consts, planes[0],
+                                       up, planes[1], planes[2], None, k[2],
+                                       k[3], "resume", 49)
+            qr = pst.parallel_step_plain(T, planes[0], up, planes[1],
+                                         planes[2], None, q[2], q[3],
+                                         "resume", 49)
+            assert torch.equal(kr[0], qr[0]) and torch.equal(kr[1], qr[1])
+    assert kernels.parallel_launches["full"] == n0["full"] + 1
+    assert kernels.parallel_launches["resume"] == n0["resume"] + 1
+
+
+def test_k6_twophase_equals_one_phase_in_the_kernel(dev):
+    from robogame_tpu_torch import kernels
+    B = 256
+    s, u = _corner_states6(dev, B, 28)
+    p2 = P6.replace(two_phase=True, compact_frac=B // ex.BLOCK)
+    a = rt.step_batch(s, u, P6, device=dev)
+    kernels.reset_launches()
+    b = rt.step_batch(s, u, p2, device=dev)
+    assert kernels.parallel_launches["export"] == 1
+    assert kernels.parallel_launches["resume"] == 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k6_step_batch_on_the_card_equals_the_cpu(dev):
+    B = 64
+    s, u = _corner_states6(dev, B, 26)
+    for p in (P6, P6.replace(two_phase=True)):
+        a = rt.step_batch(s, u, p, device=dev)
+        c = rt.step_batch(rt.GameState(*(t.cpu() for t in s)), u.cpu(), p,
+                          device="cpu")
+        for x, y in zip(a, c):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_k6_refuses_wrong_dtypes_and_shapes(dev):
+    from robogame_tpu_torch import kernels
+    B = 64
+    s, u = _corner_states6(dev, B, 1)
+    planes = ex._to_planes(s)
+    up = ex._u_plane(u, B)
+    T = ex._tabs(P6, dev)
+    args = [T.M6, T.FI, T.SP, T.consts, planes[0], up, planes[1], planes[2],
+            None, None, None, "full", 50]
+    for i, bad in ((4, planes[0].double()), (5, up[:8]),
+                   (6, planes[1][:, :32]), (1, T.FI[:40]),
+                   (4, planes[0].cpu())):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            kernels.parallel_step(*wrong)
+    with pytest.raises(ValueError):
+        kernels.parallel_step(*args[:11], "exact", 50)
+    with pytest.raises(ValueError):                 # resume needs its carry
+        kernels.parallel_step(*args[:9], torch.zeros_like(T.M6), None,
+                              "resume", 50)
