@@ -9,7 +9,8 @@ Phases, each failing loudly (nothing here catches an error):
    hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu),
    K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu), K5 (csrc/qp_joint.cu)
    and K6 (csrc/parallel_step.cu) from this checkout, one nvcc each,
-   started together;
+   started together, with ptxas's report (registers, spills, shared
+   memory) of K3's and K4's kernels;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
    (b) corner-grinding games (B=1024, pre-ground 26 steps by the kernel),
@@ -51,7 +52,9 @@ Phases, each failing loudly (nothing here catches an error):
    candidates; (d) the policy on K3 against the policy on the plain
    version at steps 50, 100, ..., 350, and 64 games on the card against
    the CPU at steps 100 and 200;
-   (e) K3's time per launch beside its bound and the plain time;
+   (e) K3's time per launch beside its bound (operations counted on the
+   knot-structured algebra, with the count on an explicit A beside it),
+   the plain time and the problems an SM it runs;
 7. slice 4's main path: (a) the cmpc_vs_cmpc and dmpc_vs_cmpc matchups
    (512 games, 400 control steps each) through ``monte_carlo``, each timed
    after a warm-up with its launch counts (K4: one launch per CMPC team
@@ -65,7 +68,9 @@ Phases, each failing loudly (nothing here catches an error):
    the plain version at steps 50, 100, ..., 350, and 64 games on the card
    against the CPU at step 100; (e) three control steps of cmpc_vs_cmpc on
    route 'joint' (6 K5 launches a team-step), timed; (f) K4's and K5's
-   times per launch beside their bounds and the plain times.
+   times per launch beside their bounds and the plain times (K4's bound
+   on the knot-structured algebra, the explicit-A count beside it, and
+   the problems an SM it runs).
 
 8. slice 5's main path, the parallel-resolution step on K6
    (``engine="pallas"``): (a) K6 against its plain version in modes full,
@@ -97,6 +102,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -351,6 +357,23 @@ def _clone(tree):
     return _tree_map(torch.clone, tree)
 
 
+def ptxas_report(log):
+    """ptxas's lines on each kernel of a build's ``-Xptxas=-v`` log, one
+    line a kernel: the compile-time shape its template fixes (N, M; 0 0
+    for the generic one), then its stack, spills, registers and shared
+    memory."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            shape = re.search(r"ILi(\d+)ELi(\d+)E", line)
+            cur = [f"N, M = {shape.group(1)}, {shape.group(2)}" if shape
+                   else line.split("'")[1]]
+            out.append(cur)
+        elif cur is not None and ("spill" in line or "Used" in line):
+            cur.append(line.split(":", 1)[-1].strip())
+    return ["; ".join(c) for c in out]
+
+
 def matchup_params(rt):
     """The matchups' physics (examples/matchups.py:180)."""
     return rt.SimParams(dt=0.05, winning_score=4, engine="pallas_exact")
@@ -397,6 +420,7 @@ def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
           f"control-steps/s  [{card}]", flush=True)
     print(f"{name} launches: {launches}", flush=True)
     print(f"{name} aggregate: {json.dumps(agg)}", flush=True)
+    agg["control_steps_per_s"] = B_CL * step[0] / wall
     check(step[0] == N_STEPS, f"{name}: ran {step[0]} steps")
     k1 = launches["K1"]
     check(k1["exact_export"] >= N_STEPS and k1["exact_resume"] >= N_STEPS,
@@ -594,13 +618,35 @@ def sqp_hook(mode, seen, name="dmpc_sqp_stats"):
 
 
 def k3_flops(n1, m, M, N, n_seg0, it0, sqp_rest, it_rest):
-    """The f32 operations of one K3 solve: the gram terms once; per
-    relinearization the knot positions, the keepout rows and A; per
-    reseed A x; per segment the lower triangle of K, the Cholesky factor
-    and its inverse (n1^3 / 3 each) and the residuals; per iteration two
-    products with A, one with C and one with C' and the vector updates of
-    the own and the box rows.  The loop counts are fixed, so every SQP
-    does this work."""
+    """The f32 operations of one K3 solve on the knot-structured algebra,
+    A never formed (csrc/knot_sqp.cuh): the gram terms once; per
+    relinearization Y = SG x and the keepout rows' scales, bounds and
+    coefficients, per warm one the dual rescale and the reseed; per
+    segment the knots' 2 x 2 blocks Q, V = Q SG and the lower triangle of K
+    = H + rho SG'V + diag, the Cholesky factor and its inverse (n1^3 / 3
+    each) and the residuals (H x, A'y as SG'u); per iteration the fold of
+    the rows into u, SG'u, C r, C't, SG x and the updates of the own and
+    the box rows.  The loop counts are fixed, so every SQP does this
+    work."""
+    tri = n1 * (n1 + 1) // 2
+    gram = 6 * N * n1
+    relin = 4 * N * n1 + 2 * N + 25 * M * N
+    warm = 5 * M * N + 2 * N
+    seg = (6 * M + 2) * N + 6 * N * n1 + 4 * N * tri + 2 * tri + n1 + \
+        2 * n1 ** 3 // 3 + 2 * n1 * n1 + 4 * N * n1 + 6 * m + 5 * (m + n1)
+    it = 8 * N * n1 + 2 * n1 * (n1 + 1) + 19 * m + 15 * n1
+    return gram + (1 + sqp_rest) * relin + sqp_rest * warm + \
+        (n_seg0 + sqp_rest) * seg + (n_seg0 * it0 + sqp_rest * it_rest) * it
+
+
+def k3_flops_dense(n1, m, M, N, n_seg0, it0, sqp_rest, it_rest):
+    """The same solve counted on an explicit constraint matrix A (m x n1),
+    kept beside :func:`k3_flops` so that bounds taken on either count stay
+    comparable: the gram terms once; per relinearization the knot
+    positions, the keepout rows and A; per reseed A x; per segment the
+    lower triangle of K = H + rho A'A + diag, the Cholesky factor and its
+    inverse and the residuals; per iteration two products with A, one with
+    C and one with C' and the vector updates."""
     gram = 6 * N * n1
     relin = 4 * N * n1 + 20 * M * N + 4 * m * n1
     reseed = 2 * m * n1
@@ -611,15 +657,15 @@ def k3_flops(n1, m, M, N, n_seg0, it0, sqp_rest, it_rest):
         (n_seg0 + sqp_rest) * seg + (n_seg0 * it0 + sqp_rest * it_rest) * it
 
 
-def k3_bound_ms(args, kw):
+def k3_bound_ms(args, kw, count=k3_flops):
     """(bound ms, 'bytes' or 'operations') of one K3 launch on ``args``:
     each input read once, x and the 5 stats written once, against the f32
-    rate."""
+    rate, the operations counted by ``count``."""
     B, n1 = args[1].shape
     N, M = kw["N"], kw["n_obs"]
     nbytes = 4 * (sum(a.numel() for a in args) + B * (n1 + 5))
-    flops = B * k3_flops(n1, (2 + M) * N, M, N, kw["n_seg0"], kw["it0"],
-                         kw["sqp_rest"], kw["it_rest"])
+    flops = B * count(n1, (2 + M) * N, M, N, kw["n_seg0"], kw["it0"],
+                      kw["sqp_rest"], kw["it_rest"])
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
@@ -816,6 +862,10 @@ def dmpc_phase(rt, dev, card):
           f"dmpc_vs_dmpc goals {runs['dmpc_vs_dmpc'][4]['mean_score_a']:.4f}"
           f" / {runs['dmpc_vs_dmpc'][4]['mean_score_b']:.4f}, mean damage "
           f"{runs['dmpc_vs_dmpc'][4]['mean_total_damage']:.4f}", flush=True)
+    print(f"phase6 (a) rates: dmpc_vs_dmpc "
+          f"{runs['dmpc_vs_dmpc'][4]['control_steps_per_s']:.1f}, "
+          f"dmpc_vs_noop {runs['dmpc_vs_noop'][4]['control_steps_per_s']:.1f}"
+          f" control-steps/s  [{card}]", flush=True)
     check(goals_a > 0, "dmpc_vs_noop: DMPC did not score")
 
     # ---- (b) K3 against its plain version at step 100 -------------------
@@ -873,11 +923,16 @@ def dmpc_phase(rt, dev, card):
     plain_ms, _ = cuda_ms(lambda: sqp_lanes._plain_stats(*args, **kw),
                           reps=2)
     bound, by = k3_bound_ms(args, kw)
+    dense, _ = k3_bound_ms(args, kw, k3_flops_dense)
+    occ = kernels.occupancy("dmpc_sqp", kw["N"], kw["n_obs"])
     P, n1 = args[1].shape
     m_own = (2 + kw["n_obs"]) * kw["N"]
     print(f"phase6 (e) K3 (P={P}, n1={n1}, m_own={m_own}): {ms:.4f} ms per "
-          f"launch; plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by})  "
-          f"[{card}]", flush=True)
+          f"launch; plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}; "
+          f"counted on an explicit A {dense:.4f} ms); "
+          f"{occ['problems_per_sm']} problems an SM (one a block, "
+          f"{occ['smem_bytes']} shared bytes a problem)  [{card}]",
+          flush=True)
     return {
         "name": f"K3 dmpc_sqp, fused DMPC SQP (n1={n1}, m_own={m_own}, "
                 f"{P} per launch)",
@@ -966,10 +1021,37 @@ def k5_flops(n1, mo, mp, n_seg, seg_iters):
 
 
 def k4_flops(n1, mo, mp, M, N, n_seg0, it0, sqp_rest, it_rest):
-    """The f32 operations of one K4 solve: the gram terms once; per
-    relinearization the knot positions, the rows' scales and bounds and A;
-    per warm iteration the dual rescale and the reseed z = A x; the
-    segments as K5's (every loop count is fixed)."""
+    """The f32 operations of one K4 solve on the knot-structured algebra,
+    A never formed (csrc/knot_sqp.cuh): the gram terms once; per
+    relinearization both players' Y = SG x, the keepout and pair rows'
+    scales, bounds and coefficients, per warm one the dual rescale and the
+    reseed; per segment K11 and K22 as H + rho SG'V (V = Q SG), K12 as N
+    rank-1 terms, W = C1 K12, S = K22 - W'W, two Cholesky factors and
+    their inverses, the residuals; per iteration the fold into u, SG'u and
+    SG x for both players, the six products of the Schur solve and the
+    row and box updates (every loop count is fixed)."""
+    R = 2 * mo + mp
+    tri = n1 * (n1 + 1) // 2
+    gram = 12 * N * n1
+    relin = 2 * (4 * N * n1 + 2 * N + 25 * M * N) + 30 * N
+    warm = 2 * (5 * M * N + 2 * N) + 5 * N
+    seg = 2 * (6 * M + 8) * N + 2 * (6 * N * n1 + 4 * N * tri + 2 * tri +
+                                     n1) + \
+        2 * N * n1 * n1 + 6 * N * n1 + n1 * n1 + n1 * n1 * (n1 + 1) + \
+        2 * n1 * tri + 4 * n1 ** 3 // 3 + \
+        4 * n1 * n1 + 8 * N * n1 + 4 * R + 5 * (R + 2 * n1)
+    it = 6 * R + 16 * N * n1 + 4 * n1 * (n1 + 1) + 4 * n1 * n1 + 2 * n1 + \
+        3 * (2 * M * N + mp) + 10 * R + 30 * n1
+    return gram + (1 + sqp_rest) * relin + sqp_rest * warm + \
+        (n_seg0 + sqp_rest) * seg + (n_seg0 * it0 + sqp_rest * it_rest) * it
+
+
+def k4_flops_dense(n1, mo, mp, M, N, n_seg0, it0, sqp_rest, it_rest):
+    """The same solve counted on an explicit A (the rows of each player's
+    columns), kept beside :func:`k4_flops` so that bounds taken on either
+    count stay comparable: the gram terms once; per relinearization the
+    knot positions, the rows' scales and bounds and A; per warm iteration
+    the dual rescale and the reseed z = A x; the segments as K5's."""
     R = 2 * mo + mp
     gram = 2 * N * 6 * n1
     relin = 2 * N * (4 * n1 + 10 + 25 * M) + 30 * N + 10 * n1 * (mo + mp)
@@ -1050,6 +1132,10 @@ def cmpc_phase(rt, dev, card):
               f"{agg['mean_total_damage']:.4f}  [{card}]", flush=True)
         runs[name] = (policy, params, snaps, launches, agg)
     agg = runs["dmpc_vs_cmpc"][4]
+    print(f"phase7 (a) rates: cmpc_vs_cmpc "
+          f"{runs['cmpc_vs_cmpc'][4]['control_steps_per_s']:.1f}, "
+          f"dmpc_vs_cmpc {agg['control_steps_per_s']:.1f} control-steps/s  "
+          f"[{card}]", flush=True)
     check(agg["mean_score_a"] > agg["mean_score_b"], "dmpc_vs_cmpc: the DMPC "
           "team did not outscore the CMPC team")
 
@@ -1176,11 +1262,11 @@ def cmpc_phase(rt, dev, card):
 
     # ---- (f) K4's and K5's times per launch ------------------------------
     entries = []
+    sched = (kw["n_seg0"], kw["it0"], kw["sqp_rest"], kw["it_rest"])
     for name, run, plain, a, flops, err, n_launch, src, repl, label in (
             ("K4", lambda: sqp_lanes.cmpc_sqp_stats(*args, **kw),
              lambda: sqp_lanes._cmpc_plain_stats(*args, **kw), args,
-             k4_flops(n1, mo, N, cm.N_OBS, N, kw["n_seg0"], kw["it0"],
-                      kw["sqp_rest"], kw["it_rest"]), err4,
+             k4_flops(n1, mo, N, cm.N_OBS, N, *sched), err4,
              launches["K4"][key], "cmpc_sqp.cu", "sqp_pallas.py:77",
              "cmpc_sqp, fused joint CMPC SQP"),
             ("K5", lambda: kernels.qp_joint(*args5, **kw5),
@@ -1194,10 +1280,18 @@ def cmpc_phase(rt, dev, card):
         plain_ms, _ = cuda_ms(plain, reps=2)
         P = a[1].shape[0]
         bound, by = _bound(a, P * (2 * n1 + 5), P * flops)
+        extra = ""
+        if name == "K4":
+            dense = k4_flops_dense(n1, mo, N, cm.N_OBS, N, *sched)
+            occ = kernels.occupancy("cmpc_sqp", N, cm.N_OBS)
+            extra = (f"; counted on an explicit A {dense / 1e6:.2f} MFLOP, "
+                     f"bound {_bound(a, P * (2 * n1 + 5), P * dense)[0]:.4f}"
+                     f" ms; {occ['problems_per_sm']} problems an SM "
+                     f"({occ['smem_bytes']} shared bytes a problem)")
         print(f"phase7 (f) {name} (P={P}, n1={n1} x 2, m_own={mo} x 2, "
               f"m_pair={N}): {ms:.4f} ms per launch; plain {plain_ms:.3f} "
               f"ms; bound {bound:.4f} ms ({by}: {flops / 1e6:.2f} MFLOP a "
-              f"problem)  [{card}]", flush=True)
+              f"problem{extra})  [{card}]", flush=True)
         entries.append({
             "name": f"{name} {label} (n1={n1} x 2, m_own={mo} x 2, "
                     f"m_pair={N}, {P} per launch)",
@@ -1571,6 +1665,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase0 build K1-K6: {build_s:.2f} s (nvcc seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
+    for name, tag in (("dmpc_sqp", "K3"), ("cmpc_sqp", "K4")):
+        for line in ptxas_report(kernels.build_log.get(name, "")):
+            print(f"phase0 {tag} ptxas: {line}", flush=True)
 
     P1 = rt.SimParams(engine="pallas_exact", two_phase=False)
     errs = []

@@ -25,80 +25,80 @@
 //     d_new, z_own = A_new x, one segment of it_rest iterations;
 //   the flag: prim < tol p_sc and dual < 10 tol d_sc of the last segment.
 //
-// What bounds it: operations.  At DMPC's production shape (N = 20: n1 = 40,
-// m_own = 100; 4 x 37 + 5 x 40 = 348 iterations, 9 factorizations) one SQP
-// needs about 9 MFLOP, and a control step's 8,192 SQPs (2 agents x 512
-// games x 8 candidates) about 75 GFLOP, against about 0.2 KB of input per
-// SQP and 28 KB of shared operands: about 1.1 ms at the H100's 67 TFLOP/s
-// in f32 against 35 us to move the bytes.  The design keeps every operand
-// of the solve on chip: one warp per problem holds A (m_own x n1), K -> L,
-// C and sg in shared memory (37.5 KB at the production shape, 6 problems a
-// block) and each lane keeps its rows' z, y, bounds and row
-// scales and its variables' x, z, y, g and box in registers, so device
-// memory is read once per problem (H's rows are re-read through L1/L2).
-// The factorization and the inverse factor run once per segment so an
-// iteration is four matrix-vector products; the iterations of a problem are a dependent chain
-// of warp-wide steps, so the kernel relies on many problems in flight, and
-// at one warp per problem it runs far above its bound (PERF.md).  Faster
-// designs (a block per problem, the 2 x 2 per-knot structure of A'A) are
-// later work.
+// What bounds it: operations, on the knot-structured algebra
+// (chip_smoke.py::k3_flops).  At DMPC's production shape (N = 20: n1 = 40,
+// m_own = 100; 4 x 37 + 5 x 40 = 348 iterations, 9 factorizations) an
+// iteration needs about 12 kFLOP (four 40 x 40 products: A'w as SG'u, C r,
+// C't, A x as SG x) and a factorization about 0.12 MFLOP; a control
+// step's 8,192 SQPs about 44 GFLOP, 0.66 ms at the H100's 67 TFLOP/s in
+// f32, against 35 us to move the 0.2 KB of input a problem.
+// The iterations of a problem are a dependent chain of short products, so
+// what decides the time is how many instructions a product issues and how
+// many problems are in flight to hide their latency.  The design
+// (csrc/knot_sqp.cuh):
 //
-// Numerics: built with -fmad=false and no fast math; IEEE division and
-// square root.  An iteration applies C and then C' as the TPU kernel and
-// the plain version do (an explicit Kinv = C'C, as K2 forms it, lies
-// further from the f64 solution on these ill-conditioned problems).  Sums
-// run in another order than the plain version's batched products, so the
-// two are held by tolerance.
+//   * A is never stored.  Every own row is a scaled combination of SG's
+//     two rows at one knot, so lane k (k < N) owns knot k's rows (the two
+//     arena rows in registers, the M keepout rows' coefficients, bounds, z
+//     and y in shared memory): A x is the knot increments Y = SG x (one
+//     float4 dot of length n1 per row of SG) and A'w is SG'u with u folded
+//     from the rows at their knots; K = H + rho SG'Q SG (+ diag) with Q 2 x
+//     2 a knot, in 2 x 2 tiles.  A relinearization rewrites 6 M N floats,
+//     not A.
+//   * One block of one warp solves one problem.  An iteration is four
+//     products (SG'u, C r, C't, SG x) split over the 32 lanes, each dot as
+//     four independent partial sums over float4 loads of its vector, with
+//     four __syncwarp.  The Cholesky factor and its inverse come from one
+//     sweep, four columns a step (knot::chol_inv).
+//   * Shared memory holds SG, K -> C and the vectors: 16 KB a problem at
+//     the production shape (A alone would add 16 KB), and registers are
+//     capped at 128 a lane, so 13 problems fit an SM (rg_dmpc_sqp_occupancy
+//     asks the card's occupancy calculator).  H is read from device
+//     memory, through L1/L2, once per segment.
+//   * The production shape (N = 20, M = 3) runs a kernel with N and M
+//     fixed at compile time, its products fully unrolled; every other
+//     supported shape the same code with N and M read at run time.
+//
+// Numerics: no fast math; IEEE division and square root.  Built with FMA
+// contraction (kernels.py's flag table): the kernel is held to its plain
+// version by tolerance and, in chip_smoke.py phase 6 (b), to lie no further
+// from the f64 plain version than the plain f32 version does.  An iteration
+// applies C and then C' as the TPU kernel and the plain version do (an
+// explicit Kinv = C'C, as K2 forms it, lies further from the f64 solution
+// on these ill-conditioned problems).
 //
 // Supported shapes: n1 = 2N with n1 % 8 == 0 and n1 <= 64, m_own <= 256;
 // anything else is refused at launch (the wrapper raises first).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "knot_sqp.cuh"
 
 namespace {
 
-constexpr int WARP = 32;
+using knot::WARP;
 constexpr int MAX_N1 = 64;
 constexpr int MAX_M = 256;
-constexpr int RN = MAX_N1 / WARP;       // variables per lane
-constexpr int MAX_WARPS = 8;            // problems per block
-constexpr size_t SMEM_MAX = 232448;     // a block's shared memory on H100
+constexpr int RN = MAX_N1 / WARP;       // variables a lane
+constexpr int MIN_PER_SM = 16;          // the register cap: 128 a lane
 
 struct Dims {
-  int n1, N, M, m, ldn, ldm, lds;
+  int N, M, n1, lds, ldc, floats;
 };
 
+// Shared floats of one problem: SG (2N rows of lds), K -> C (n1 columns of
+// ldc), the vectors x, r, t, u (n1 each), four columns of L (4 n1), the
+// knots' Q blocks (4N) and
+// the keepout rows' cx, cy, d, lo, z, y (M N each), rounded to a multiple
+// of 4.
 __host__ __device__ inline Dims dims(int N, int M) {
   Dims d;
   d.N = N;
   d.M = M;
   d.n1 = 2 * N;
-  d.m = 2 * N + M * N;
-  d.ldn = d.n1 | 1;
-  d.ldm = d.m | 1;
-  d.lds = (2 * N) | 1;
+  d.lds = d.n1 + 4;
+  d.ldc = d.n1 + 1;
+  const int f = 2 * N * d.lds + d.n1 * d.ldc + 8 * d.n1 + 4 * N + 6 * M * N;
+  d.floats = (f + 3) & ~3;
   return d;
-}
-
-// Shared floats of one warp: A, K/L, C, sg, then the row vectors w
-// and d, the keepout offsets dx and dy, the vectors x and r.
-__host__ __device__ inline int warp_floats(const Dims& d) {
-  return d.n1 * d.ldm + 2 * d.n1 * d.ldn + d.n1 * d.lds + 2 * d.ldm +
-         2 * d.M * d.N + 2 * d.ldn;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct Params {
@@ -106,9 +106,10 @@ struct Params {
   float rho, sigma, alpha, tol, dual_tol, d2, inv_n1;
 };
 
-// RM: own rows per lane, ceil(m_own / 32) rounded up to 1, 2, 4 or 8.
-template <int RM>
-__global__ void __launch_bounds__(WARP * MAX_WARPS)
+// NC, MC > 0: N and M fixed at compile time (the production shape, its
+// products fully unrolled); 0: taken from P.
+template <int NC, int MC>
+__global__ void __launch_bounds__(WARP, MIN_PER_SM)
 dmpc_sqp_kernel(const float* __restrict__ H, const float* __restrict__ g,
                 const float* __restrict__ sg, const float* __restrict__ p0,
                 const float* __restrict__ obs,
@@ -117,24 +118,26 @@ dmpc_sqp_kernel(const float* __restrict__ H, const float* __restrict__ g,
                 const float* __restrict__ lx, const float* __restrict__ ux,
                 const float* __restrict__ U0, float* __restrict__ xout,
                 float* __restrict__ stats, Params P) {
-  extern __shared__ float smem[];
-  const Dims D = dims(P.N, P.M);
-  const int n1 = D.n1, N = D.N, M = D.M, m = D.m;
-  const int ldn = D.ldn, ldm = D.ldm, lds = D.lds;
-  const int lane = threadIdx.x & (WARP - 1);
-  const int wib = threadIdx.x / WARP;
-  const int b = blockIdx.x * (blockDim.x / WARP) + wib;
-  if (b >= P.B) return;                     // the whole warp leaves together
-  float* As = smem + (size_t)wib * warp_floats(D);  // A[r][j] at j*ldm+r
-  float* Ms = As + n1 * ldm;    // K -> L, then C r; M[i][j] at j*ldn+i
-  float* Cs = Ms + n1 * ldn;    // C = L^-1;       C[i][j] at j*ldn+i
-  float* Ss = Cs + n1 * ldn;    // sg: column j = [x rows (N); y rows (N)]
-  float* ws = Ss + n1 * lds;    // a row vector: rho z - y, keepout rhs, y
-  float* ds = ws + ldm;         // the row scales d
-  float* dxs = ds + ldm;        // keepout offsets, row 2N + m N + k at m N + k
-  float* dys = dxs + M * N;
-  float* xs = dys + M * N;      // x (the linearization point, the iterate)
-  float* rs = xs + ldn;         // the iteration's right-hand side
+  extern __shared__ float4 smem4[];
+  const Dims D = dims(NC > 0 ? NC : P.N, MC > 0 ? MC : P.M);
+  const int N = D.N, M = D.M, n1 = D.n1, lds = D.lds, ldc = D.ldc;
+  const int MN = M * N;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  float* SG = reinterpret_cast<float*>(smem4);
+  float* Cm = SG + 2 * N * lds;   // K -> C; M[i][j] at j ldc + i
+  float* xs = Cm + n1 * ldc;      // x (the linearization point, the iterate)
+  float* rs = xs + n1;            // the iteration's right-hand side
+  float* ts = rs + n1;            // C r
+  float* us = ts + n1;            // u: [x entries (N); y entries (N)]
+  float* cl = us + n1;            // four columns of L
+  float* qs = cl + 4 * n1;        // Q of knot k at 4k: qxx, qxy, qyy, 0
+  float* kcx = qs + 4 * N;        // keepout row (m, k) at m N + k
+  float* kcy = kcx + MN;
+  float* kd = kcy + MN;
+  float* klo = kd + MN;
+  float* kz = klo + MN;
+  float* ky = kz + MN;
 
   const float* Hb = H + (size_t)b * n1 * n1;
   const float* sgb = sg + (size_t)b * N * 2 * n1;
@@ -142,9 +145,9 @@ dmpc_sqp_kernel(const float* __restrict__ H, const float* __restrict__ g,
 
   for (int e = lane; e < N * 2 * n1; e += WARP) {     // sg[b, k, c, j]
     const int kc = e / n1, j = e - kc * n1;
-    const int k = kc >> 1, c = kc & 1;
-    Ss[j * lds + c * N + k] = sgb[e];
+    SG[((kc & 1) * N + (kc >> 1)) * lds + j] = sgb[e];
   }
+  for (int e = lane; e < n1 * ldc; e += WARP) Cm[e] = 0.f;
   float gi[RN], xi[RN], zx[RN], yx[RN], lxi[RN], uxi[RN];
   float tr = 0.f;
 #pragma unroll
@@ -160,275 +163,219 @@ dmpc_sqp_kernel(const float* __restrict__ H, const float* __restrict__ g,
       tr += Hb[i * n1 + i];
     }
   }
-  tr = warp_sum(tr);
-  float rho_s = fminf(fmaxf(tr * P.inv_n1, 1e-3f), 1e6f) * P.rho;
-  float lo[RM], hi[RM], dr[RM], la[RM], ha[RM], z[RM], y[RM], ax[RM];
-#pragma unroll
-  for (int k = 0; k < RM; ++k) {
-    const int r = lane + WARP * k;
-    const bool arena = r < 2 * N;
-    la[k] = arena ? lo_arena[(size_t)b * 2 * N + r] : 0.f;
-    ha[k] = arena ? hi_arena[(size_t)b * 2 * N + r] : 0.f;
-    lo[k] = hi[k] = z[k] = y[k] = ax[k] = 0.f;
-    dr[k] = 1.f;
-  }
+  tr = knot::warp_sum(tr);
+  float rho = fminf(fmaxf(tr * P.inv_n1, 1e-3f), 1e6f) * P.rho;
   __syncwarp();
-  // knot lane k: the gram terms, the free-response position, the arena
-  // rows' scales
+
+  // knot lane k = lane < N: its gram terms, free-response position and two
+  // arena rows (scale, bounds, z, y) in registers; Y = (SG x)[k], [N + k]
+  const bool knot = lane < N;
+  const float* sx = SG + lane * lds;
+  const float* sy = SG + (N + lane) * lds;
   float gxx = 0.f, gxy = 0.f, gyy = 0.f, p0x = 0.f, p0y = 0.f;
-  if (lane < N) {
+  float dax = 1.f, day = 1.f, lax = 0.f, hax = 0.f, lay = 0.f, hay = 0.f;
+  float zax = 0.f, yax = 0.f, zay = 0.f, yay = 0.f, Yx = 0.f, Yy = 0.f;
+  if (knot) {
+#pragma unroll 4
     for (int j = 0; j < n1; ++j) {
-      const float sx = Ss[j * lds + lane], sy = Ss[j * lds + N + lane];
-      gxx = gxx + sx * sx;
-      gxy = gxy + sx * sy;
-      gyy = gyy + sy * sy;
+      gxx += sx[j] * sx[j];
+      gxy += sx[j] * sy[j];
+      gyy += sy[j] * sy[j];
     }
     p0x = p0[((size_t)b * N + lane) * 2 + 0];
     p0y = p0[((size_t)b * N + lane) * 2 + 1];
-    ds[lane] = 1.f / fmaxf(sqrtf(gxx), 1e-8f);
-    ds[N + lane] = 1.f / fmaxf(sqrtf(gyy), 1e-8f);
-  }
-  const float one_m_alpha = 1.f - P.alpha;
-
-  // Rebuild the scaled own rows of A at the point in xs: row scales into dr,
-  // bounds into lo/hi.
-  auto relinearize = [&]() {
-    if (lane < N) {
-      float accx = p0x, accy = p0y;
-      for (int j = 0; j < n1; ++j) {
-        accx = accx + Ss[j * lds + lane] * xs[j];
-        accy = accy + Ss[j * lds + N + lane] * xs[j];
-      }
-      for (int mm = 0; mm < M; ++mm) {
-        const float dx = accx - ob[2 * mm], dy = accy - ob[2 * mm + 1];
-        const float nrm = 2.f * sqrtf(dx * dx * gxx + 2.f * dx * dy * gxy +
-                                      dy * dy * gyy);
-        const float gval = dx * dx + dy * dy - P.d2;
-        const float rhs = 2.f * (dx * accx + dy * accy) - gval -
-                          2.f * (dx * p0x + dy * p0y);
-        const int q = mm * N + lane;
-        dxs[q] = dx;
-        dys[q] = dy;
-        ws[2 * N + q] = rhs;
-        ds[2 * N + q] = 1.f / fmaxf(nrm, 1e-8f);
-      }
-    }
-    __syncwarp();
+    dax = 1.f / fmaxf(sqrtf(gxx), 1e-8f);
+    day = 1.f / fmaxf(sqrtf(gyy), 1e-8f);
+    const size_t ra = (size_t)b * 2 * N + lane;
+    lax = lo_arena[ra] * dax;
+    hax = hi_arena[ra] * dax;
+    lay = lo_arena[ra + N] * day;
+    hay = hi_arena[ra + N] * day;
 #pragma unroll
-    for (int k = 0; k < RM; ++k) {
-      const int r = lane + WARP * k;
-      if (r < m) {
-        dr[k] = ds[r];
-        if (r < 2 * N) {
-          lo[k] = la[k] * dr[k];
-          hi[k] = ha[k] * dr[k];
-        } else {
-          lo[k] = ws[r] * dr[k];
-          hi[k] = 1e9f * dr[k];
+    for (int m = 0; m < M; ++m) kz[m * N + lane] = ky[m * N + lane] = 0.f;
+  }
+  const float alpha = P.alpha;
+
+  // The keepout rows at the point in xs; warm: rescale their duals by
+  // d_old / d_new and reseed every own row's z = A_new x.
+  auto relinearize = [&](bool warm) {
+    if (knot) {
+      Yx = knot::dot4(sx, xs, n1);
+      Yy = knot::dot4(sy, xs, n1);
+      const float accx = p0x + Yx, accy = p0y + Yy;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int q = m * N + lane;
+        float d, lo, cx, cy;
+        knot::keepout_row(accx, accy, p0x, p0y, gxx, gxy, gyy, ob[2 * m],
+                          ob[2 * m + 1], P.d2, d, lo, cx, cy);
+        if (warm) {
+          ky[q] = ky[q] * (kd[q] / d);
+          kz[q] = cx * Yx + cy * Yy;
         }
+        kd[q] = d;
+        klo[q] = lo;
+        kcx[q] = cx;
+        kcy[q] = cy;
       }
-    }
-    for (int e = lane; e < m * n1; e += WARP) {
-      const int j = e / m, r = e - j * m;
-      const float* sj = Ss + j * lds;
-      float a;
-      if (r < 2 * N) {
-        a = sj[r];
-      } else {
-        const int q = r - 2 * N, kn = q % N;
-        a = 2.f * (dxs[q] * sj[kn] + dys[q] * sj[N + kn]);
+      if (warm) {
+        zax = dax * Yx;
+        zay = day * Yy;
       }
-      As[j * ldm + r] = a * ds[r];
     }
     __syncwarp();
   };
 
-  // z_own = A x for the iterate in xs
-  auto reseed = [&]() {
+  // u = the rows' coefficients times v folded into their knots: v = rho z -
+  // y (dual = false) or the duals y (dual = true), into us.
+  auto fold = [&](bool dual) {
+    if (knot) {
+      float ux_ = dax * (dual ? yax : rho * zax - yax);
+      float uy_ = day * (dual ? yay : rho * zay - yay);
 #pragma unroll
-    for (int k = 0; k < RM; ++k) {
-      const int r = lane + WARP * k;
-      if (r < m) {
-        float acc = 0.f;
-        for (int j = 0; j < n1; ++j) acc += As[j * ldm + r] * xs[j];
-        z[k] = acc;
+      for (int m = 0; m < M; ++m) {
+        const int q = m * N + lane;
+        const float w = dual ? ky[q] : rho * kz[q] - ky[q];
+        ux_ += kcx[q] * w;
+        uy_ += kcy[q] * w;
       }
+      us[lane] = ux_;
+      us[N + lane] = uy_;
     }
   };
 
   float prim = 0.f, dual = 0.f, p_sc = 1.f, d_sc = 1.f;
 
   auto segment = [&](int iters) {
-    // ---- K = H + (sigma + rho) I + rho A'A (lower triangle)
-    for (int e = lane; e < n1 * n1; e += WARP) {
-      const int j = e / n1, i = e - j * n1;
-      if (i >= j) {
-        const float* ai = As + i * ldm;
-        const float* aj = As + j * ldm;
-        float acc = 0.f;
-        for (int r = 0; r < m; ++r) acc += ai[r] * aj[r];
-        float kij = Hb[i * n1 + j] + rho_s * acc;
-        if (i == j) kij += P.sigma + rho_s;
-        Ms[j * ldn + i] = kij;
-      }
-    }
-    __syncwarp();
-    // ---- Cholesky in place, right-looking: column j of L over column j of K
-    for (int j = 0; j < n1; ++j) {
-      const float d = Ms[j * ldn + j];
-      __syncwarp();
-      const float ljj = sqrtf(d);
-      const float piv = 1.0f / ljj;
-      for (int i = j + lane; i < n1; i += WARP)
-        Ms[j * ldn + i] = i == j ? ljj : Ms[j * ldn + i] * piv;
-      __syncwarp();
-      const int t = n1 - j - 1;
-      for (int e = lane; e < t * t; e += WARP) {
-        const int kk = e / t, ii = e - kk * t;
-        if (ii >= kk) {
-          const int k = j + 1 + kk, i = j + 1 + ii;
-          Ms[k * ldn + i] -= Ms[j * ldn + i] * Ms[j * ldn + k];
-        }
-      }
-      __syncwarp();
-    }
-    // ---- C = L^-1 by forward substitution, one column per lane
+    // ---- K = H + rho SG'Q SG + (sigma + rho) I, then C = chol(K)^-1
+    if (knot) {
+      float qxx = dax * dax, qxy = 0.f, qyy = day * day;
 #pragma unroll
-    for (int q = 0; q < RN; ++q) {
-      const int c = lane + WARP * q;
-      if (c < n1) {
-        float* Cc = Cs + c * ldn;
-        for (int i = 0; i < c; ++i) Cc[i] = 0.f;
-        for (int i = c; i < n1; ++i) {
-          float acc = 0.f;
-          for (int k = c; k < i; ++k) acc += Ms[k * ldn + i] * Cc[k];
-          Cc[i] = ((i == c ? 1.f : 0.f) - acc) / Ms[i * ldn + i];
-        }
+      for (int m = 0; m < M; ++m) {
+        const int q = m * N + lane;
+        qxx += kcx[q] * kcx[q];
+        qxy += kcx[q] * kcy[q];
+        qyy += kcy[q] * kcy[q];
       }
+      qs[4 * lane + 0] = qxx;
+      qs[4 * lane + 1] = qxy;
+      qs[4 * lane + 2] = qyy;
+      qs[4 * lane + 3] = 0.f;
     }
     __syncwarp();
+    knot::form_k<WARP>(Cm, ldc, SG, lds, qs, N, Hb, rho, P.sigma + rho,
+                       nullptr, 0, n1, lane);
+    __syncwarp();
+    knot::chol_inv<knot::WarpTeam, 4>(Cm, n1, ldc, cl, lane);
 
     // ---- ADMM iterations
     for (int it = 0; it < iters; ++it) {
+      fold(false);
+      __syncwarp();
 #pragma unroll
-      for (int k = 0; k < RM; ++k) {
-        const int r = lane + WARP * k;
-        if (r < m) ws[r] = rho_s * z[k] - y[k];
+      for (int q = 0; q < RN; ++q) {
+        const int i = lane + WARP * q;
+        if (i < n1)
+          rs[i] = (P.sigma * xi[q] - gi[q]) +
+                  knot::row_dot(SG, lds, i, us, 0, n1) +
+                  (rho * zx[q] - yx[q]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < RN; ++q) {
+        const int i = lane + WARP * q;
+        const int kend = n1 < WARP * (q + 1) ? n1 : WARP * (q + 1);
+        if (i < n1) ts[i] = knot::row_dot(Cm, ldc, i, rs, 0, kend);
       }
       __syncwarp();
 #pragma unroll
       for (int q = 0; q < RN; ++q) {
         const int i = lane + WARP * q;
         if (i < n1) {
-          const float* ai = As + i * ldm;
-          float acc = 0.f;
-          for (int r = 0; r < m; ++r) acc += ai[r] * ws[r];
-          rs[i] = P.sigma * xi[q] - gi[q] + acc + (rho_s * zx[q] - yx[q]);
+          const float x =
+              knot::col_dot(Cm, ldc, i, ts, WARP * q, n1 - WARP * q);
+          xi[q] = x;
+          xs[i] = x;
+          knot::admm_row(x, lxi[q], uxi[q], rho, alpha, zx[q], yx[q]);
         }
       }
       __syncwarp();
-      // x = C'(C r): t = C r into the dead L's first column, then C't
-      float* ts = Ms;
+      if (knot) {
+        Yx = knot::dot4(sx, xs, n1);
+        Yy = knot::dot4(sy, xs, n1);
+        knot::admm_row(dax * Yx, lax, hax, rho, alpha, zax, yax);
+        knot::admm_row(day * Yy, lay, hay, rho, alpha, zay, yay);
 #pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        const int i = lane + WARP * q;
-        if (i < n1) {
-          float acc = 0.f;
-          for (int k = 0; k <= i; ++k) acc += Cs[k * ldn + i] * rs[k];
-          ts[i] = acc;
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        const int i = lane + WARP * q;
-        if (i < n1) {
-          const float* ci = Cs + i * ldn;
-          float acc = 0.f;
-          for (int k = i; k < n1; ++k) acc += ci[k] * ts[k];
-          xi[q] = acc;
-          xs[i] = acc;
-          const float zt = P.alpha * acc + one_m_alpha * zx[q];
-          const float zn = fminf(fmaxf(zt + yx[q] / rho_s, lxi[q]), uxi[q]);
-          yx[q] = yx[q] + rho_s * (zt - zn);
-          zx[q] = zn;
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < RM; ++k) {
-        const int r = lane + WARP * k;
-        if (r < m) {
-          float acc = 0.f;
-          for (int j = 0; j < n1; ++j) acc += As[j * ldm + r] * xs[j];
-          ax[k] = acc;
-          const float zt = P.alpha * acc + one_m_alpha * z[k];
-          const float zn = fminf(fmaxf(zt + y[k] / rho_s, lo[k]), hi[k]);
-          y[k] = y[k] + rho_s * (zt - zn);
-          z[k] = zn;
+        for (int m = 0; m < M; ++m) {
+          const int q = m * N + lane;
+          float z = kz[q], y = ky[q];
+          knot::admm_row(kcx[q] * Yx + kcy[q] * Yy, klo[q], 1e9f * kd[q],
+                         rho, alpha, z, y);
+          kz[q] = z;
+          ky[q] = y;
         }
       }
     }
 
-    // ---- residuals and the adaptive rho update (ax is the last
-    // iteration's, computed from the final x)
+    // ---- residuals (A x from the final x's Y) and the adaptive rho update
     float pr = 0.f, am = 0.f, zm = 0.f;
 #pragma unroll
-    for (int k = 0; k < RM; ++k) {
-      const int r = lane + WARP * k;
-      if (r < m) {
-        ws[r] = y[k];
-        pr = fmaxf(pr, fabsf(ax[k] - z[k]));
-        am = fmaxf(am, fabsf(ax[k]));
-        zm = fmaxf(zm, fabsf(z[k]));
+    for (int q = 0; q < RN; ++q) {
+      if (lane + WARP * q < n1) {
+        pr = fmaxf(pr, fabsf(xi[q] - zx[q]));
+        am = fmaxf(am, fabsf(xi[q]));
+        zm = fmaxf(zm, fabsf(zx[q]));
       }
     }
+    if (knot) {
+      const float ax = dax * Yx, ay = day * Yy;
+      pr = fmaxf(pr, fmaxf(fabsf(ax - zax), fabsf(ay - zay)));
+      am = fmaxf(am, fmaxf(fabsf(ax), fabsf(ay)));
+      zm = fmaxf(zm, fmaxf(fabsf(zax), fabsf(zay)));
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int q = m * N + lane;
+        const float a = kcx[q] * Yx + kcy[q] * Yy;
+        pr = fmaxf(pr, fabsf(a - kz[q]));
+        am = fmaxf(am, fabsf(a));
+        zm = fmaxf(zm, fabsf(kz[q]));
+      }
+    }
+    fold(true);
     __syncwarp();
     float du = 0.f, hm = 0.f, atm = 0.f, gm = 0.f;
 #pragma unroll
     for (int q = 0; q < RN; ++q) {
       const int i = lane + WARP * q;
       if (i < n1) {
-        pr = fmaxf(pr, fabsf(xi[q] - zx[q]));
-        am = fmaxf(am, fabsf(xi[q]));
-        zm = fmaxf(zm, fabsf(zx[q]));
-        const float* hrow = Hb + (size_t)i * n1;
+        const float* hrow = Hb + i * n1;
         float hx = 0.f;
+#pragma unroll 8
         for (int j = 0; j < n1; ++j) hx += hrow[j] * xs[j];
-        const float* ai = As + i * ldm;
-        float aty = 0.f;
-        for (int r = 0; r < m; ++r) aty += ai[r] * ws[r];
-        aty = aty + yx[q];
+        const float aty = knot::row_dot(SG, lds, i, us, 0, n1) + yx[q];
         du = fmaxf(du, fabsf(hx + gi[q] + aty));
         hm = fmaxf(hm, fabsf(hx));
         atm = fmaxf(atm, fabsf(aty));
         gm = fmaxf(gm, fabsf(gi[q]));
       }
     }
-    prim = warp_max(pr);
-    dual = warp_max(du);
-    p_sc = fmaxf(warp_max(am), warp_max(zm)) + 1e-9f;
-    d_sc = fmaxf(fmaxf(warp_max(hm), warp_max(atm)), warp_max(gm)) + 1e-9f;
+    prim = knot::warp_max(pr);
+    dual = knot::warp_max(du);
+    p_sc = fmaxf(knot::warp_max(am), knot::warp_max(zm)) + 1e-9f;
+    d_sc = fmaxf(fmaxf(knot::warp_max(hm), knot::warp_max(atm)),
+                 knot::warp_max(gm)) + 1e-9f;
     const float ratio = sqrtf((prim / p_sc) / (dual / d_sc + 1e-12f));
-    rho_s = fminf(fmaxf(rho_s * fminf(fmaxf(ratio, 0.2f), 5.0f), 1e-6f),
-                  1e8f);
+    rho = fminf(fmaxf(rho * fminf(fmaxf(ratio, 0.2f), 5.0f), 1e-6f), 1e8f);
     __syncwarp();
   };
 
   // ---- SQP iteration 1: cold ADMM start at the linearization point U0
-  relinearize();
+  relinearize(false);
   for (int s = 0; s < P.n_seg0; ++s) segment(P.it0);
   // ---- SQP iterations 2..: relinearize at x, rescale the row duals,
   // reseed z = A_new x, one warm segment with the carried rho
   for (int s = 0; s < P.sqp_rest; ++s) {
-    float d_old[RM];
-#pragma unroll
-    for (int k = 0; k < RM; ++k) d_old[k] = dr[k];
-    __syncwarp();
-    relinearize();
-#pragma unroll
-    for (int k = 0; k < RM; ++k) y[k] = y[k] * (d_old[k] / dr[k]);
-    reseed();
+    relinearize(true);
     segment(P.it_rest);
   }
 
@@ -448,23 +395,44 @@ dmpc_sqp_kernel(const float* __restrict__ H, const float* __restrict__ g,
   }
 }
 
-template <int RM>
+size_t smem_bytes(int N, int M) {
+  return (size_t)dims(N, M).floats * sizeof(float);
+}
+
+bool supported(int N, int M) {
+  const int n1 = 2 * N, m = 2 * N + M * N;
+  return N >= 1 && n1 % 8 == 0 && n1 <= MAX_N1 && M >= 0 && m <= MAX_M &&
+         smem_bytes(N, M) <= knot::SMEM_MAX;
+}
+
+// DMPC's production shape (N = 20 knots, 3 keepouts a knot) runs the
+// specialized kernel, every other supported shape the generic one.
+bool production(int N, int M) { return N == 20 && M == 3; }
+
+template <int NC, int MC>
 int launch(const float* const* in, float* x, float* stats, const Params& P,
            cudaStream_t stream) {
-  const size_t per_warp = (size_t)warp_floats(dims(P.N, P.M)) * sizeof(float);
-  int warps = MAX_WARPS;
-  while (warps > 1 && warps * per_warp > SMEM_MAX) --warps;
-  if (per_warp > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const size_t bytes = warps * per_warp;
+  const size_t bytes = smem_bytes(P.N, P.M);
   cudaError_t err = cudaFuncSetAttribute(
-      dmpc_sqp_kernel<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dmpc_sqp_kernel<NC, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P.B + warps - 1) / warps), block(WARP * warps);
-  dmpc_sqp_kernel<RM><<<grid, block, bytes, stream>>>(
+  dmpc_sqp_kernel<NC, MC><<<P.B, WARP, bytes, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], x,
       stats, P);
   return (int)cudaGetLastError();
+}
+
+template <class K>
+int occupancy(K kernel, int N, int M, int* out) {
+  const size_t bytes = smem_bytes(N, M);
+  out[0] = 0;
+  out[1] = (int)bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                            WARP, bytes);
 }
 
 }  // namespace
@@ -484,17 +452,22 @@ extern "C" int rg_dmpc_sqp(const float* H, const float* g, const float* sg,
                            float rho, float sigma, float alpha, float tol,
                            float dual_tol, float d2, float inv_n1,
                            void* stream) {
-  const int n1 = 2 * N, m = 2 * N + M * N;
-  if (N < 1 || n1 % 8 != 0 || n1 > MAX_N1 || M < 0 || m > MAX_M || B < 1 ||
-      n_seg0 < 1 || it0 < 1 || sqp_rest < 0 || (sqp_rest > 0 && it_rest < 1))
+  if (!supported(N, M) || B < 1 || n_seg0 < 1 || it0 < 1 || sqp_rest < 0 ||
+      (sqp_rest > 0 && it_rest < 1))
     return (int)cudaErrorInvalidValue;
   const Params P{B, N, M, n_seg0, it0, sqp_rest, it_rest, rho, sigma, alpha,
                  tol, dual_tol, d2, inv_n1};
   const float* in[10] = {H, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0};
   cudaStream_t st = (cudaStream_t)stream;
-  const int rm = (m + WARP - 1) / WARP;
-  if (rm <= 1) return launch<1>(in, x, stats, P, st);
-  if (rm <= 2) return launch<2>(in, x, stats, P, st);
-  if (rm <= 4) return launch<4>(in, x, stats, P, st);
-  return launch<8>(in, x, stats, P, st);
+  return production(N, M) ? launch<20, 3>(in, x, stats, P, st)
+                          : launch<0, 0>(in, x, stats, P, st);
+}
+
+// The problems an SM that K3 runs at (N, M), one a block (the card's
+// occupancy calculator), into out[0], and its shared bytes a problem into
+// out[1].  Returns the CUDA error (0 on success).
+extern "C" int rg_dmpc_sqp_occupancy(int N, int M, int* out) {
+  if (!supported(N, M)) return (int)cudaErrorInvalidValue;
+  return production(N, M) ? occupancy(dmpc_sqp_kernel<20, 3>, N, M, out)
+                          : occupancy(dmpc_sqp_kernel<0, 0>, N, M, out);
 }

@@ -1,10 +1,11 @@
-// The structured two-agent ADMM QP solve shared by K4 (csrc/cmpc_sqp.cu)
-// and K5 (csrc/qp_joint.cu), written by hand for Hopper (sm_90a).
+// The structured two-agent ADMM QP solve of K5 (csrc/qp_joint.cu), written
+// by hand for Hopper (sm_90a), on a general A.  (K4, whose rows are knot
+// combinations of the position sensitivities, has its own machinery in
+// csrc/knot_sqp.cuh.)
 //
-// It computes what the TPU kernels' shared machinery computes
+// It computes what the TPU kernel's machinery computes
 // (robogame_tpu/ops/qp_pallas.py: _chol_in_place :392, _trtri_in_place
-// :405, and the segment of _make_joint_kernel :420, repeated in
-// robogame_tpu/ops/sqp_pallas.py::_make_cmpc_kernel): the problem
+// :405, and the segment of _make_joint_kernel :420): the problem
 //
 //   min 1/2 x'Hx + g'x  s.t.  lx <= x <= ux (implicit rows),
 //                             lo <= A x <= hi,
@@ -28,17 +29,17 @@
 //
 // Design: one block of NT = 128 threads per problem.  At CMPC's shape (n1
 // = 40, mo = 80, mp = 20) a problem's A, C1, W and S take 53 KB of shared
-// memory (K4 adds sg and the relinearization's vectors, 72 KB), so only 3
-// or 4 problems fit an SM: one warp per problem, as K2 and K3 do it, would
-// leave 3-4 warps an SM.  Four warps share each problem instead: thread v <
-// 2 n1 owns variable v (its x, z, y, g and box in registers), thread t owns
-// the rows t, t + 128, ... (their z, y, bounds and rho in registers), and
+// memory, so only 3 or 4 problems fit an SM: one warp per problem, as K2
+// does it, would leave 3-4 warps an SM.  Four warps share each problem
+// instead: thread v < 2 n1 owns variable v (its x, z, y, g and box in
+// registers), thread t owns the rows t, t + 128, ... (their z, y, bounds
+// and rho in registers), and
 // the formation of K, the Cholesky's trailing updates and the inverse's
 // rows spread over the block.  H stays in device memory (read once per
 // segment and for the residuals, through L1/L2).  The triangular solves are
 // dependent chains of n1-long dot products; more problems in flight, the
 // per-knot structure of A'A and warp-level splitting of those dots are
-// later work.
+// later work (K4's design in csrc/knot_sqp.cuh is one answer).
 //
 // Numerics: the sources are built with -fmad=false and no fast math, IEEE
 // division and square root.  Sums run in another order than the plain
@@ -126,7 +127,7 @@ __device__ inline Solver carve(float* smem, const Dims& D, const float* H,
 template <int RM>
 struct Own {
   float x, zx, yx, g, lx, ux;                  // variable threadIdx.x
-  float z[RM], y[RM], lo[RM], hi[RM], ro[RM], ax[RM], d[RM];
+  float z[RM], y[RM], lo[RM], hi[RM], ro[RM], ax[RM];
   bool eq[RM];                                 // rows threadIdx.x + NT k
   float rho;                                   // the box rows' rho
   float prim, dual, p_sc, d_sc;                // the last segment's
@@ -350,16 +351,6 @@ __device__ inline void schur_solve(const Solver& s) {
     s.xs[t] = acc;
   }
   __syncthreads();
-}
-
-// z = A x for the x in xs (the warm start's reseed).
-template <int RM>
-__device__ inline void reseed(const Solver& s, Own<RM>& o) {
-#pragma unroll
-  for (int k = 0; k < RM; ++k) {
-    const int q = threadIdx.x + NT * k;
-    if (q < s.D.R) o.z[k] = ax_row(s, q);
-  }
 }
 
 // One adaptive-rho segment of ``iters`` ADMM iterations from the carry in

@@ -73,7 +73,6 @@ qp_joint_kernel(const float* __restrict__ Hb, const float* __restrict__ g,
     o.lo[k] = ok ? l[(size_t)b * D.R + q] : 0.f;
     o.hi[k] = ok ? u[(size_t)b * D.R + q] : 0.f;
     o.eq[k] = ok && o.lo[k] == o.hi[k];
-    o.d[k] = 1.f;
   }
   __syncthreads();
   for (int seg = 0; seg < P.n_seg; ++seg) joint::segment(s, o, P.seg_iters);

@@ -12,18 +12,31 @@ source and the flags), and bound with ``ctypes``:
 * K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve;
 * K6, ``csrc/parallel_step.cu``: the parallel-resolution control step.
 
-K4 and K5 share their ADMM and block-Schur machinery in
-``csrc/joint_schur.cuh``, K1 and K6 their constants, RK4 and detect in
-``csrc/step_common.cuh``; a library's name hashes its source with the
-headers it includes.
+K3 and K4 share their knot-structured SQP machinery (the constraint
+operator applied through the position sensitivities, never as a stored A,
+and the one-sweep Cholesky factor and inverse) in ``csrc/knot_sqp.cuh``;
+K5 keeps its block-Schur ADMM on a general A in ``csrc/joint_schur.cuh``;
+K1 and K6 share their constants, RK4 and detect in
+``csrc/step_common.cuh``.  A library's name hashes its source with the
+headers it includes (``HEADERS``) and its flags.
 
 :func:`build_all` starts one ``nvcc`` per source that is not built yet, all
 at once.  Nothing here runs while the module is imported, so the CPU tests
 import it freely.
 
-Flags: ``-fmad=false`` and no fast math, so each f32 operation is the IEEE
-operation the plain PyTorch versions do (true division, correctly rounded
-square root, no contraction into FMAs).
+Flags (``flags``): every library builds with ``-O3`` for ``sm_90a``, no
+fast math, IEEE division and correctly rounded square root.  ``FMAD`` says
+which may contract a product and a sum into one FMA: K3 (``dmpc_sqp``) and
+K4 (``cmpc_sqp``) do (``-fmad=true``, and ``-Xptxas=-v``, whose report
+lands in ``build_log``), as they are held to their plain versions by
+tolerance and to lie no further from the f64 solution than the plain f32
+version; K1, K2, K5 and K6 build with ``-fmad=false``, so each f32
+operation is the one their plain versions do (K1 and K6 are held to theirs
+bitwise).
+
+``occupancy(name, N, n_obs)`` asks K3's or K4's library for the problems
+an SM it runs (one a block; the card's occupancy calculator) and its
+shared bytes a problem.
 
 Launch counters, added to only by the launch paths below: ``launches``
 holds K1's per mode, ``qp_launches`` K2's per (n, m) shape,
@@ -54,12 +67,24 @@ SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
            "parallel_step": _PKG / "csrc" / "parallel_step.cu"}
 # the headers each source includes (hashed with it)
 HEADERS = {"exact_step": [_PKG / "csrc" / "step_common.cuh"],
-           "cmpc_sqp": [_PKG / "csrc" / "joint_schur.cuh"],
+           "dmpc_sqp": [_PKG / "csrc" / "knot_sqp.cuh"],
+           "cmpc_sqp": [_PKG / "csrc" / "knot_sqp.cuh"],
            "qp_joint": [_PKG / "csrc" / "joint_schur.cuh"],
            "parallel_step": [_PKG / "csrc" / "step_common.cuh"]}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# the libraries built with FMA contraction (the others with -fmad=false);
+# their builds also report ptxas's registers, spills and shared memory
+# (``build_log``)
+FMAD = {"dmpc_sqp", "cmpc_sqp"}
+
+
+def flags(name: str) -> list:
+    """The nvcc flags of one library."""
+    if name in FMAD:
+        return [*NVCC_FLAGS, "-fmad=true", "-Xptxas=-v"]
+    return [*NVCC_FLAGS, "-fmad=false"]
 
 _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
@@ -70,6 +95,7 @@ sqp_launches: dict = {}
 cmpc_launches: dict = {}
 joint_launches: dict = {}
 build_seconds: dict = {}
+build_log: dict = {}         # nvcc's messages of each library built here
 _libs: dict = {}
 
 
@@ -95,7 +121,7 @@ def _nvcc() -> str:
 def _out_path(name: str) -> Path:
     text = b"".join(f.read_bytes() for f in [SOURCES[name],
                                              *HEADERS.get(name, [])])
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text + " ".join(flags(name)).encode()
                             ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -115,7 +141,7 @@ def build_all(names=None) -> dict:
         for name in todo:
             tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
             jobs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                [nvcc, *flags(name), "-o", str(tmp), str(SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         failed = []
         for name, (tmp, proc) in jobs.items():
@@ -125,6 +151,7 @@ def build_all(names=None) -> dict:
                 continue
             os.replace(tmp, outs[name])
             build_seconds[name] = time.perf_counter() - t0
+            build_log[name] = err
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return outs
@@ -148,6 +175,11 @@ _SIGNATURES = {
 }
 
 
+# the occupancy queries of K3 and K4: (N, M, int out[2])
+_OCCUPANCY = {"dmpc_sqp": "rg_dmpc_sqp_occupancy",
+              "cmpc_sqp": "rg_cmpc_sqp_occupancy"}
+
+
 def _library(name: str):
     lib = _libs.get(name)
     if lib is None:
@@ -156,8 +188,24 @@ def _library(name: str):
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if name in _OCCUPANCY:
+            occ = getattr(lib, _OCCUPANCY[name])
+            occ.argtypes = [_I, _I, _P]
+            occ.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def occupancy(name: str, N: int, n_obs: int) -> dict:
+    """The problems an SM that K3 (``dmpc_sqp``) or K4 (``cmpc_sqp``) runs
+    at N knots and n_obs keepouts a knot on the current card (one problem a
+    block), and its shared bytes a problem."""
+    out = (ctypes.c_int * 2)()
+    err = getattr(_library(name), _OCCUPANCY[name])(int(N), int(n_obs),
+                                                     ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
+    return {"problems_per_sm": out[0], "smem_bytes": out[1]}
 
 
 def _ptr(t):

@@ -6,11 +6,11 @@ Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-The kernels are built with -fmad=false and IEEE division and square
-root.  K1 and K6 run their plain versions' f32 operations in the same
-order, so each is held to be equal to its plain version bitwise, which
-also covers chaotic grinding games; K2-K5 are held by tolerance (see
-their sections below)."""
+The kernels are built with IEEE division and square root; K1, K2, K5 and
+K6 with -fmad=false, K3 and K4 with FMA contraction.  K1 and K6 run their
+plain versions' f32 operations in the same order, so each is held to be
+equal to its plain version bitwise, which also covers chaotic grinding
+games; K2-K5 are held by tolerance (see their sections below)."""
 
 import importlib
 
@@ -239,23 +239,48 @@ def _capture_fused(dm, mpc, inp):
     return seen[0]
 
 
-def test_k3_agrees_with_plain(dev):
+# the shapes each fused SQP kernel is held to its plain version on: N
+# knots and the change to the controller's solve (n_obs = 0 drops the
+# keepout rows, sqp_rest = 0 the warm SQP iterations; P the problems kept)
+SQP_CASES = {
+    "production": (20, {}),
+    "n1_24": (12, {}),              # K3: 2N not a multiple of the 32 lanes
+    "n1_56": (28, {}),              # K4: two passes of 48 paired outputs
+    "no_keepouts": (20, {"n_obs": 0}),
+    "no_warm_iterations": (20, {"sqp_rest": 0}),
+    "one_problem": (20, {"P": 1}),
+    "odd_problem_count": (4, {"P": 3}),
+}
+
+
+def _sqp_case(args, kw, change):
+    """The captured solve's (args, kw) with one of SQP_CASES' changes."""
+    args, kw = list(args), dict(kw)
+    if "n_obs" in change:
+        args[4] = args[4][:, :change["n_obs"]].contiguous()
+        kw["n_obs"] = change["n_obs"]
+    if "sqp_rest" in change:
+        kw["sqp_rest"] = change["sqp_rest"]
+    if "P" in change:
+        args = [a[:change["P"]].contiguous() for a in args]
+    return args, kw
+
+
+@pytest.mark.parametrize("case", [c for c in SQP_CASES if c != "n1_56"])
+def test_k3_agrees_with_plain(dev, case):
     from robogame_tpu_torch import kernels
     from robogame_tpu_torch.ops import sqp_lanes
     torch.backends.cuda.matmul.allow_tf32 = False
-    dm, mpc, inp = _dmpc_candidates(dev, 256, 20)
-    args, kw = _capture_fused(dm, mpc, inp)
-    before = kernels.sqp_launches.get((40, 100), 0)
+    N, change = SQP_CASES[case]
+    dm, mpc, inp = _dmpc_candidates(dev, 256, N)
+    args, kw = _sqp_case(*_capture_fused(dm, mpc, inp), change)
+    key = (2 * N, (2 + kw["n_obs"]) * N)
+    before = kernels.sqp_launches.get(key, 0)
     xk, sk = sqp_lanes.dmpc_sqp_stats(*args, **kw)
-    assert kernels.sqp_launches[(40, 100)] == before + 1
+    assert kernels.sqp_launches[key] == before + 1
     xp, sp = sqp_lanes._plain_stats(*args, **kw)
     torch.cuda.synchronize()
-    ck, cp = sk[:, 0] > 0.5, sp[:, 0] > 0.5
-    assert float((ck == cp).float().mean()) >= 0.99
-    both = ck & cp
-    off = both & ((xk - xp).abs() > 2e-3 + 1e-2 * xp.abs()).any(-1)
-    assert int(off.sum()) <= 0.02 * int(both.sum())
-    assert bool(torch.isfinite(xk).all()) and float(ck.float().mean()) > 0.5
+    _held(xk, sk, xp, sp, min_conv=0.5 if xk.shape[0] > 1 else 0.0)
 
 
 def test_k3_one_sqp_iteration_agrees_with_k2(dev):
@@ -331,30 +356,33 @@ def _capture(module, name, fn):
     return seen[0]
 
 
-def _held(xk, sk, xp, sp, off_share=0.02):
+def _held(xk, sk, xp, sp, off_share=0.02, min_conv=0.5):
     ck, cp = sk[:, 0] > 0.5, sp[:, 0] > 0.5
     assert float((ck == cp).float().mean()) >= 0.99
     both = ck & cp
     off = both & ((xk - xp).abs() > 2e-3 + 1e-2 * xp.abs()).any(-1)
     assert int(off.sum()) <= off_share * int(both.sum())
-    assert bool(torch.isfinite(xk).all()) and float(ck.float().mean()) > 0.5
+    assert bool(torch.isfinite(xk).all())
+    assert float(ck.float().mean()) >= min_conv
 
 
-def test_k4_agrees_with_plain(dev):
+@pytest.mark.parametrize("case", [c for c in SQP_CASES if c != "n1_24"])
+def test_k4_agrees_with_plain(dev, case):
     from robogame_tpu_torch import kernels
     from robogame_tpu_torch.ops import sqp_lanes
     torch.backends.cuda.matmul.allow_tf32 = False
-    cm, mpc, inp = _cmpc_candidates(dev, 128, 20)
+    N, change = SQP_CASES[case]
+    cm, mpc, inp = _cmpc_candidates(dev, 128, N)
     args, kw = _capture(sqp_lanes, "cmpc_sqp_stats", lambda: cm.candidates(
         *inp, rt.SimParams(), mpc, "fused"))
-    key = (40, 80, 20)
+    args, kw = _sqp_case([a.float().contiguous() for a in args], kw, change)
+    key = (2 * N, (2 + kw["n_obs"]) * N, N)
     before = kernels.cmpc_launches.get(key, 0)
     xk, sk = sqp_lanes.cmpc_sqp_stats(*args, **kw)
     assert kernels.cmpc_launches[key] == before + 1
-    xp, sp = sqp_lanes._cmpc_plain_stats(*(a.float().contiguous()
-                                           for a in args), **kw)
+    xp, sp = sqp_lanes._cmpc_plain_stats(*args, **kw)
     torch.cuda.synchronize()
-    _held(xk, sk, xp, sp)
+    _held(xk, sk, xp, sp, min_conv=0.5 if xk.shape[0] > 1 else 0.0)
 
 
 def test_k5_agrees_with_plain(dev):
