@@ -6,11 +6,11 @@
 Phases, each failing loudly (nothing here catches an error):
 
 0. the card's name and power limit (nvidia-smi), then the builds of the
-   hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_admm.cu),
-   K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu), K5 (csrc/qp_joint.cu)
-   and K6 (csrc/parallel_step.cu) from this checkout, one nvcc each,
-   started together, with ptxas's report (registers, spills, shared
-   memory) of K3's and K4's kernels;
+   hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_grouped.cu
+   and csrc/qp_admm.cu), K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu), K5
+   (csrc/qp_joint.cu) and K6 (csrc/parallel_step.cu) from this checkout,
+   one nvcc each, started together, with ptxas's report (registers,
+   spills, shared memory) of K2's grouped kernels and K3's and K4's;
 1. K1 against its plain PyTorch version on the card, from common states:
    (a) mode exact at B=8192 on Monte-Carlo starts, uniform schedules;
    (b) corner-grinding games (B=1024, pre-ground 26 steps by the kernel),
@@ -30,17 +30,31 @@ Phases, each failing loudly (nothing here catches an error):
    (classical vs classical, with and without the CBF filter; 512 games x
    400 control steps, randomized puck starts) through ``monte_carlo``,
    each timed after a warm-up with the K1 and K2 launch counts of its run
-   (K2: 3 per step with CBF, 2 without); CBF must cut the mean damage.
+   (K2: 2 grouped launches a step for the skills, each with the
+   per-problem kernel's launch over its equality-row problems, and one
+   per-problem launch for the CBF filter) and the problems each K2 route
+   solved (every skills QP grouped); CBF must cut the mean damage.
    From the states of steps 100 and 200 of the CBF run, the policy on K2
    is held against the policy on K2's plain version on the card, and 16
    games' policy output on the card against the CPU;
-5. K2 against its plain version on the card: the skills QPs (n=30, m=60,
-   40960 problems) and the CBF QPs (8, 20) of a mid-game matchup state,
-   random DMPC-shaped QPs (40, 140) with row scaling and equality rows
-   (and, reported only, how each f32 route's flags agree with the plain
-   version in f64 at 150 iterations), and shared operands bitwise equal to
-   their broadcast; K2's time per
-   launch at both matchup shapes beside its bound and the plain time;
+5. K2 against its plain version on the card: (a) the skills QPs (n=30,
+   m=60, 40960 problems, the grouped route) and (b) the CBF QPs (8, 20,
+   the per-problem route) of a mid-game matchup state; (a') on the
+   skills, the grouped kernel, its plain version and the plain f32
+   version against the plain version in f64 (the kernel must lie no
+   further from it than the plain f32 version: at most one problem more
+   outside the tolerance, and a problem's max |dx| no larger in the mean
+   nor at its largest); (c) random
+   DMPC-shaped QPs (40, 140) with row scaling and equality rows (and,
+   reported only, how each f32 route's flags agree with the plain version
+   in f64 at 150 iterations); (c'') 16 groups of 640 skills-shaped QPs
+   with equality rows in 5% of them, which the per-problem kernel must
+   solve within the grouped call; (d) two grouped launches bitwise equal,
+   and the grouped route against the per-problem kernel on the broadcast
+   operands; K2's time per launch at both matchup shapes (the grouped
+   route with its setup alone, and the per-problem kernel on the same
+   skills) beside its bounds (the grouped count and the count with a
+   factorization a segment) and the plain time;
 6. slice 3's main path: (a) the dmpc_vs_dmpc and dmpc_vs_noop matchups
    (512 games, 400 control steps each) through ``monte_carlo``, each timed
    after a warm-up with its K1, K2 and K3 launch counts (K3: one launch
@@ -89,7 +103,8 @@ Phases, each failing loudly (nothing here catches an error):
    (``engine="sweep"``, plain PyTorch) on the card, B=2048 x 40 steps,
    timed, and 64 games x 3 steps held against the CPU from common states;
    (f) K6's time per control step (export + resume at step 200 of the
-   main path) beside its bound and the plain time.
+   main path, each printed, with the resume's warps an SM) beside its
+   bound and the plain time.
 
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6); the last line is
@@ -160,13 +175,25 @@ def k2_flops(n, m, n_seg, seg_iters):
     return n_seg * (form + n ** 3 + seg_iters * it + res)
 
 
-def k2_bound_ms(G, P, n, m, n_seg, seg_iters):
+def k2_grouped_flops(n, m, n_seg, seg_iters):
+    """The f32 operations one K2 solve needs on the grouped algebra (the
+    factors come once per group, in f64, and are not counted: some 0.2
+    MFLOP a group of 2,560 problems): per iteration the products A'w, W'r,
+    W t and A x (4mn + 4n^2) and the vector updates, per segment the
+    diagonal 1/(1 + rho lam) and the residuals (Hx, A'y)."""
+    it = 4 * m * n + 4 * n * n + 5 * n + 10 * m
+    res = 2 * m * n + 2 * n * n + 5 * m + 5 * n
+    return n_seg * (2 * n + seg_iters * it + res)
+
+
+def k2_bound_ms(G, P, n, m, n_seg, seg_iters, count=k2_flops):
     """(bound ms, 'bytes' or 'operations') of one K2 launch: each input
     read once (G shared H and A, per-problem g, l, u), each output written
-    once (x and 3 flags), against the f32 rate."""
+    once (x and 3 flags), against the f32 rate, the operations counted by
+    ``count``."""
     nbytes = 4 * (G * (n * n + m * n) + P * (n + 2 * m) + P * (n + 3))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = P * k2_flops(n, m, n_seg, seg_iters) / H100_F32_PER_S * 1e3
+    t_ops = P * count(n, m, n_seg, seg_iters) / H100_F32_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -206,6 +233,23 @@ def random_qps(dev, P, n, m, n_eq, seed=40):
         H, rng.normal(size=(P, n)), rng.normal(size=(P, m, n)), lo, hi)]
 
 
+def grouped_qps(dev, G, group, n, m, n_eq, share, seed=41):
+    """G groups of ``group`` random strictly convex QPs sharing H and A,
+    ``n_eq`` equality rows in a ``share`` of the problems, float32 on
+    ``dev``."""
+    rng = np.random.default_rng(seed)
+    P = G * group
+    Q = rng.normal(size=(G, n, n))
+    H = np.einsum("bij,bkj->bik", Q, Q) / n + np.eye(n) / 10.0
+    lo = rng.uniform(-2.0, 0.0, (P, m))
+    hi = rng.uniform(0.1, 2.0, (P, m))
+    rows = rng.random(P) < share
+    lo[rows, :n_eq] = hi[rows, :n_eq] = rng.uniform(
+        -0.5, 0.5, (int(rows.sum()), n_eq))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        H, rng.normal(size=(P, n)), rng.normal(size=(G, m, n)), lo, hi)]
+
+
 def _objective(H, g, x, group):
     """1/2 x'Hx + g'x per problem, H shared by groups of ``group``."""
     G, n = H.shape[0], g.shape[1]
@@ -227,6 +271,13 @@ def k2_vs_plain(tag, H, g, A, l, u, group=1, **kw):
     k = qp_lanes.solve_qp_lanes(H, g, A, l, u, group=group, **kw)
     p = qp.solve_qp(H.repeat_interleave(group, 0), g,
                     A.repeat_interleave(group, 0), l, u, **kw)
+    return held_against(k, p, tag, H, g, group, l.shape[1]), k
+
+
+def held_against(k, p, tag, H, g, group, m):
+    """K2's solution k held against p by k2_vs_plain's criteria (H shared
+    by groups of ``group``, m rows); returns max |dx| where both
+    converged."""
     torch.cuda.synchronize()
     agree = float((k.converged == p.converged).float().mean())
     both = k.converged & p.converged
@@ -238,7 +289,7 @@ def k2_vs_plain(tag, H, g, A, l, u, group=1, **kw):
               for s in (k, p))
     df = ((fk - fp).abs() / (1 + fp.abs()))[both]
     dfmax = float(df.max()) if nb else 0.0
-    print(f"phase5 {tag}: P={g.shape[0]} n={g.shape[1]} m={l.shape[1]}: "
+    print(f"phase5 {tag}: P={g.shape[0]} n={g.shape[1]} m={m}: "
           f"flags agree {agree:.5f}, both converged {nb}; there max|dx| "
           f"{err:.3g}, {int(off.sum())} problems outside "
           f"{X_ATOL}/{X_RTOL}, max |df|/(1+|f|) {dfmax:.3g}", flush=True)
@@ -246,7 +297,7 @@ def k2_vs_plain(tag, H, g, A, l, u, group=1, **kw):
     check(dfmax <= 2e-2, f"{tag}: K2's objective differs ({dfmax})")
     check(int(off.sum()) <= nb // 1000, f"{tag}: K2 disagrees with its "
           f"plain version ({err})")
-    return err, k
+    return err
 
 
 def _tensors(tree):
@@ -408,7 +459,12 @@ def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
     ev1.record()
     scores = res.scores.cpu()
     wall = time.perf_counter() - t0
-    launches = {"K1": dict(kernels.launches), "K2": dict(kernels.qp_launches),
+    k2 = {**{("per_problem", *k): v for k, v in kernels.qp_launches.items()},
+          **{("grouped", *k): v for k, v in
+             kernels.qp_grouped_launches.items()},
+          **{("listed", *k): v for k, v in
+             kernels.qp_listed_launches.items()}}
+    launches = {"K1": dict(kernels.launches), "K2": k2,
                 "K3": dict(kernels.sqp_launches),
                 "K4": dict(kernels.cmpc_launches),
                 "K5": dict(kernels.joint_launches)}
@@ -433,18 +489,27 @@ def run_matchup(rt, kernels, name, policy, ps0, dev, card, snap=SNAP_STEPS):
 
 
 def run_classical(rt, kernels, name, cbf, dev, card):
-    """A classical matchup (phase 4): K2 runs 2 skills launches a step and
-    one CBF launch with the filter; returns (policy, params, snapshots, K2
-    launches, aggregate)."""
+    """A classical matchup (phase 4): K2 runs 2 skills launches a step on
+    its grouped route (each followed by the per-problem kernel's launch
+    over the equality-row problems, of which the skills have none) and one
+    CBF launch with the filter on its per-problem route; returns (policy,
+    params, snapshots, K2 launches by (route, n, m), aggregate)."""
     policy, ps0 = rt.classical_matchup(matchup_params(rt), B_CL, cbf=cbf,
                                        device=dev)
     params, snaps, launches, agg = run_matchup(
         rt, kernels, f"phase4 {name}", policy, ps0, dev, card)
-    want = {(30, 60): 2 * N_STEPS}
+    want = {("grouped", 30, 60): 2 * N_STEPS,
+            ("listed", 30, 60): 2 * N_STEPS}
     if cbf is not None:
-        want[(8, 20)] = N_STEPS
+        want[("per_problem", 8, 20)] = N_STEPS
     k2 = launches["K2"]
     check(k2 == want, f"{name}: K2 launches {k2}, expected {want}")
+    routes = kernels.k2_routes()
+    n_skills = 2 * N_STEPS * B_CL * 5 * 16
+    print(f"phase4 {name} K2 problems by route: {routes}", flush=True)
+    check(routes == {"grouped": n_skills, "listed": 0, "per_problem":
+                     (N_STEPS * B_CL if cbf is not None else 0)},
+          f"{name}: K2 routes {routes}")
     return policy, params, snaps, k2, agg
 
 
@@ -485,20 +550,46 @@ def closed_loop_and_k2(rt, dev, card):
     T, _, g, lo, hi = tr.candidate_qps(torch.cat(c4[:2], 1),
                                        torch.cat(c4[2:], 1), params)
     skills = (T.H, g, T.A, lo, hi)
+    kernels.reset_launches()
     err_s, ks = k2_vs_plain(f"(a) skills, step {SNAP_STEPS[0]}", *skills,
                             group=B5, iters=60)
-    # how far each f32 route lies from the plain version in f64 (reported)
-    ps32 = qp.solve_qp(T.H.repeat_interleave(B5, 0), g,
-                       T.A.repeat_interleave(B5, 0), lo, hi, iters=60)
-    ps64 = qp.solve_qp(*(a.double() for a in (
-        T.H.repeat_interleave(B5, 0), g, T.A.repeat_interleave(B5, 0), lo,
-        hi)), iters=60)
-    all3 = ks.converged & ps32.converged & ps64.converged
-    d64 = [float((a.x.double() - ps64.x).abs()[all3].max()) for a in (
-        ks, ps32)]
-    print(f"phase5 (a') skills against the plain version in f64, "
-          f"{int(all3.sum())} problems all converged: max|dx| K2 {d64[0]:.3g}, plain f32 "
-          f"{d64[1]:.3g}", flush=True)
+    routes = kernels.k2_routes()
+    print(f"phase5 (a) skills K2 problems by route: {routes}", flush=True)
+    check(routes["grouped"] == g.shape[0] and not routes["listed"] and
+          not routes["per_problem"], "(a) the skills did not all take the "
+          "grouped route")
+    # how far each f32 route lies from the plain version in f64: the
+    # grouped kernel, its plain version, the plain f32 version
+    Hb, Ab = (a.repeat_interleave(B5, 0) for a in (T.H, T.A))
+    ps32 = qp.solve_qp(Hb, g, Ab, lo, hi, iters=60)
+    ps64 = qp.solve_qp(*(a.double() for a in (Hb, g, Ab, lo, hi)),
+                       iters=60)
+    gpl = qp_lanes.solve_qp_grouped_plain(*skills, group=B5, iters=60)
+    sols = {"K2": ks, "grouped plain version": gpl, "plain f32": ps32}
+    all3 = ps64.converged
+    for sol in sols.values():
+        all3 = all3 & sol.converged
+    n3 = int(all3.sum())
+    far = {}
+    for key, sol in sols.items():
+        d = (sol.x.double() - ps64.x).abs()[all3]
+        off = int((d > X_ATOL + X_RTOL * ps64.x.abs()[all3]).any(-1).sum())
+        dmax = d.amax(-1)
+        far[key] = (off, float(dmax.mean()), float(dmax.max()))
+        print(f"phase5 (a') skills, {key} against the plain version in f64 "
+              f"({n3} problems all converged): {off} outside "
+              f"{X_ATOL}/{X_RTOL}; max|dx| a problem: max "
+              f"{float(dmax.max()):.4g}, 99.9% "
+              f"{float(dmax.quantile(0.999)):.4g}, mean "
+              f"{float(dmax.mean()):.4g}", flush=True)
+    # no further from f64 than the plain f32 version: at most one problem
+    # more outside the tolerance, and a problem's max |dx| no larger in
+    # the mean nor at its largest
+    (k_off, k_mean, k_max), (p_off, p_mean, p_max) = far["K2"], \
+        far["plain f32"]
+    check(k_off <= p_off + 1 and k_mean <= p_mean and k_max <= p_max,
+          f"(a') K2 lies further from f64 than the plain f32 version: "
+          f"{far['K2']} vs {far['plain f32']}")
     u_nom = torch.cat([rt.team_policy_batch(ts, x, f, params,
                                             rt.StrategyParams())[1]
                        for f, ts in zip((-1, 1), carry)], dim=1)
@@ -522,15 +613,32 @@ def closed_loop_and_k2(rt, dev, card):
           f"K2 vs plain {agree(k, p):.4f}, K2 vs f64 {agree(k, f64):.4f}, "
           f"plain vs f64 {agree(p, f64):.4f}; converged (f64) "
           f"{float(f64.converged.float().mean()):.3f}", flush=True)
-    bc = qp_lanes.solve_qp_lanes(T.H.repeat_interleave(B5, 0), g,
-                                 T.A.repeat_interleave(B5, 0), lo, hi,
-                                 iters=60)
-    check(all(torch.equal(a, b) for a, b in zip(ks, bc)),
-          "(d) grouped operands differ from their broadcast")
-    print("phase5 (d) skills with 16 shared H and A == the broadcast "
-          "operands, bitwise", flush=True)
+    # groups at the skills shape with equality rows in 5% of the problems:
+    # those go from the grouped launch to the per-problem kernel
+    grp = grouped_qps(dev, 16, 640, 30, 60, n_eq=3, share=0.05)
+    kernels.reset_launches()
+    k2_vs_plain("(c'') 16 groups of 640 (30, 60), 3 equality rows in 5%",
+                *grp, group=640, iters=60)
+    routes = kernels.k2_routes()
+    n_eq = int((grp[3] == grp[4]).any(-1).sum())
+    print(f"phase5 (c'') K2 problems by route: {routes} ({n_eq} with an "
+          f"equality row)", flush=True)
+    check(routes["listed"] == n_eq > 0 and
+          routes["grouped"] == grp[1].shape[0] - n_eq,
+          "(c'') the equality-row problems did not take the per-problem "
+          "kernel")
+    # (d) a grouped launch repeats itself bitwise, and agrees with the
+    # per-problem kernel on the broadcast operands within K2's tolerances
+    ks2 = qp_lanes.solve_qp_lanes(*skills, group=B5, iters=60)
+    check(all(torch.equal(a, b) for a, b in zip(ks, ks2)),
+          "(d) two grouped launches differ")
+    bc = qp_lanes.solve_qp_lanes(Hb, g, Ab, lo, hi, iters=60)
+    held_against(ks, bc, "(d) grouped vs the broadcast operands on the "
+                 "per-problem kernel", T.H, g, B5, lo.shape[1])
+    print("phase5 (d) two grouped launches bitwise equal", flush=True)
 
     entries = []
+    occ = kernels.qp_grouped_occupancy()
     for tag, qpa, group, iters, n, m, err in (
             ("skills QPs", skills, B5, 60, 30, 60, err_s),
             ("CBF QPs", cbf_qp, 1, cbf.qp_iters, 8, 20, err_c)):
@@ -544,16 +652,43 @@ def closed_loop_and_k2(rt, dev, card):
         plain_ms, _ = cuda_ms(lambda: qp.solve_qp(
             Hf, qpa[1], Af, qpa[3], qpa[4], iters=iters), reps=3)
         P = qpa[1].shape[0]
-        bound, by = k2_bound_ms(qpa[0].shape[0], P, n, m, 4, iters // 4)
-        print(f"phase5 K2 {tag} (P={P}, n={n}, m={m}): {ms:.4f} ms per "
-              f"launch; plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
-              f"({by})  [{card}]", flush=True)
+        G = qpa[0].shape[0]
+        bound_f, by_f = k2_bound_ms(G, P, n, m, 4, iters // 4)
+        if group > 1:
+            setup_ms, _ = cuda_ms(lambda: kernels.qp_grouped_setup(
+                qpa[0], qpa[2], 1e-6), reps=20)
+            per_ms, _ = cuda_ms(lambda: kernels.qp_admm(
+                *qpa, group, 4, iters // 4, 1.0, 1e-6, 1.6, 1e-3), reps=5)
+            bound, by = k2_bound_ms(G, P, n, m, 4, iters // 4,
+                                    k2_grouped_flops)
+            source = "robogame_tpu_torch/csrc/qp_grouped.cu"
+            kname = "K2 qp_grouped (grouped route)"
+            print(f"phase5 K2 {tag} (P={P}, n={n}, m={m}), grouped route: "
+                  f"{ms:.4f} ms per launch (its setup alone {setup_ms:.4f} "
+                  f"ms, {G} groups; {occ['blocks_per_sm']} blocks of 80 "
+                  f"problems an SM, {occ['smem_bytes']} shared bytes each); "
+                  f"the per-problem kernel on the same problems "
+                  f"{per_ms:.4f} ms; plain {plain_ms:.3f} ms; bound "
+                  f"{bound:.4f} ms ({by}, grouped count "
+                  f"{k2_grouped_flops(n, m, 4, iters // 4) / 1e6:.4f} "
+                  f"MFLOP a problem) / {bound_f:.4f} ms with a factorization "
+                  f"a segment ({k2_flops(n, m, 4, iters // 4) / 1e6:.4f} "
+                  f"MFLOP)  [{card}]", flush=True)
+            launches = k2_main[("grouped", n, m)]
+        else:
+            bound, by = bound_f, by_f
+            source = "robogame_tpu_torch/csrc/qp_admm.cu"
+            kname = "K2 qp_admm (per-problem route)"
+            print(f"phase5 K2 {tag} (P={P}, n={n}, m={m}), per-problem "
+                  f"route: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; "
+                  f"bound {bound:.4f} ms ({by})  [{card}]", flush=True)
+            launches = k2_main[("per_problem", n, m)]
         entries.append({
-            "name": f"K2 qp_admm, {tag} (n={n}, m={m}, {P} per launch)",
+            "name": f"{kname}, {tag} (n={n}, m={m}, {P} per launch)",
             "route": "cuda",
-            "source": "robogame_tpu_torch/csrc/qp_admm.cu",
+            "source": source,
             "replaces": "robogame_tpu/ops/qp_pallas.py:100",
-            "launches": k2_main[(n, m)],
+            "launches": launches,
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1596,6 +1731,11 @@ def pallas_phase(rt, dev, card, u_uni, k1_rate):
     for _ in range(3):
         run_resume()
     res_ms, (_, aux_r, _, _) = cuda_ms(run_resume, reps=20)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"phase8 (f) K6 at B={B_MAIN}, step 200, a warp a game: export "
+          f"{exp_ms:.4f} ms, resume {res_ms:.4f} ms; the resume's {K} games "
+          f"run {K / n_sm:.2f} warps an SM on {-(-K // 4)} blocks of 4  "
+          f"[{card}]", flush=True)
     pl_exp_ms, pl_exp = cuda_ms(lambda: ps.parallel_step_plain(
         T, planes[0], up, planes[1], planes[2], None, None, None, "export",
         1))
@@ -1665,7 +1805,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase0 build K1-K6: {build_s:.2f} s (nvcc seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
-    for name, tag in (("dmpc_sqp", "K3"), ("cmpc_sqp", "K4")):
+    for name, tag in (("qp_grouped", "K2 grouped"), ("dmpc_sqp", "K3"),
+                      ("cmpc_sqp", "K4")):
         for line in ptxas_report(kernels.build_log.get(name, "")):
             print(f"phase0 {tag} ptxas: {line}", flush=True)
 

@@ -2,7 +2,9 @@
 
 The batched Monte-Carlo game step runs on a hand-written CUDA kernel for
 Hopper (``csrc/exact_step.cu``, K1), every batched QP of the classical
-team and the CBF safety filter on a second one (``csrc/qp_admm.cu``, K2),
+team and the CBF safety filter on a second one (K2: ``csrc/qp_grouped.cu``
+for the skills' QPs, which share their operands, ``csrc/qp_admm.cu`` for
+the rest),
 every DMPC candidate's whole SQP on a third (``csrc/dmpc_sqp.cu``, K3),
 and every CMPC candidate's joint SQP on a fourth (``csrc/cmpc_sqp.cu``,
 K4), with the structured joint QP of the CMPC "joint" route on a fifth

@@ -7,7 +7,9 @@ T_GRID final times: one condensed QP per (candidate, problem), all solved
 in one launch of K2 (:func:`..ops.qp_lanes.solve_qp_lanes`), then the
 argmin of the reference's soft objective 10 |x_N - xf|^2 + T.  The
 candidates' H and constraint matrices depend only on the T grid, so K2
-reads 16 shared matrices (group = B) instead of a broadcast per problem.
+takes its grouped route (group = B, from 32 problems): one factorization
+per shared matrix, then the factor-free iterations, instead of a
+factorization per problem.
 
 A trajectory is a padded (2, MAX_TRAJ) control sequence plus a length.
 The glue products are elementwise sums, never matrix products, so they run

@@ -31,22 +31,28 @@
 // grid is 4 KB a game, 33 MB at B = 8192, inside the 50 MB L2), so the
 // bytes bound lies far below the time of the per-game chains.
 //
-// Design (first, simple and right):
-// * one thread per game, 32 games a block (K1's layout); the grid in
-//   device memory in the plane layout [20][G+1][B], so a warp's access to
-//   one (component, column) is one 128-byte line;
-// * the TPU recomputes all 20 components with a dense 32-term dot; here
-//   only the claimed entities' tails are summed, six terms a cell, and
-//   only for columns >= base; the partner's tail is recomputed from its z
-//   (never read back from the grid being written);
-// * detect stops at each entity's first qualifying column (shared with K1
-//   in step_common.cuh); the tables M6, FI and SP are read through the
-//   caches;
-// * built with -fmad=false and IEEE division and square root: every f32
-//   operation is the one the plain version does, in the same order, so
-//   the two agree bitwise.  Warp divergence across games with different
-//   trip counts is what the two-phase compaction handles; shared-memory
-//   tiling, a warp per game and CUDA graphs are later work.
+// Design: a warp per game (WarpGame below), in every mode.
+// * The block's WPB games read their grids (resume) or populate noise
+//   planes (stochastic populate) from the plane layout [20][G+1][B] into
+//   shared memory together, WPB consecutive games a (component, column),
+//   and write the grids back the same way at the end (export and finish);
+//   in between a game's grid (20 x 51 floats, 4 KB) never leaves shared
+//   memory.  The compacted resume of 512 pending games is 512 warps on
+//   128 blocks, about 4 warps an SM over all 132 SMs.
+// * Detect (detect_warp): the lanes take the columns, 32 at a time from
+//   the least base; each lane evaluates the qualifying tests of its column
+//   exactly as step_common.cuh's detect does, and an entity's first
+//   qualifying column is the lowest lane with a hit (__ballot_sync,
+//   __ffs), its event broadcast with __shfl_sync.
+// * The populate's cells, and the re-propagated tails' columns >= base,
+//   are split over the lanes; each cell is the same six-term sum and the
+//   same correction in the same order.
+// * Selection, resolve and the damage and carry accumulations run in
+//   their serial order on every lane alike (warp-uniform), so every lane
+//   holds the same game state.
+// Built with -fmad=false and IEEE division and square root: every f32
+// operation is the one the plain version does, in the same order, so the
+// kernel and the plain version agree bitwise.
 
 #include <cuda_runtime.h>
 #include <string.h>
@@ -57,14 +63,134 @@ namespace {
 
 using namespace rg_step;
 enum { MODE_FULL = 0, MODE_EXPORT = 1, MODE_RESUME = 2 };
+constexpr int WARP = 32;
+constexpr int WPB = 4;                  // games (warps) a block
+constexpr unsigned FULL = 0xffffffffu;
+
+// The first qualifying event of every entity from its base, a warp over
+// one game's grid in shared memory (sg[c * K1 + k]): step_common.cuh's
+// detect with the columns over the lanes.  Every lane returns the same.
+__device__ __forceinline__ void detect_warp(const float* sg, int K1,
+                                            const Consts& K,
+                                            const int (&base)[E], int lane,
+                                            float (&st)[E], int (&sj)[E],
+                                            int (&sc)[E], bool (&sv)[E]) {
+  const int G = K1 - 1;
+  int k0 = K1;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (base[e] < k0) k0 = base[e];
+    st[e] = INF_T;
+    sj[e] = -1;
+    sc[e] = 0;
+    sv[e] = false;
+  }
+  k0 = k0 > 1 ? k0 : 1;
+  int todo = (1 << E) - 1;
+  for (int c0 = k0; c0 <= G && todo; c0 += WARP) {
+    const int k = c0 + lane;
+    const bool valid = k <= G;
+    const int kk = valid ? k : G;
+    float cu[NC], pv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      cu[c] = sg[c * K1 + kk];
+      pv[c] = sg[c * K1 + kk - 1];
+    }
+    const float tm = ((float)kk - 1.0f) * K.dtcol;
+    float ptc[E][E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+#pragma unroll
+      for (int o = i + 1; o < E; ++o) {
+        ptc[i][o] = INF_T;
+        if (((todo >> i) | (todo >> o)) & 1) {
+          const float sig2 = K.sig2[i][o];
+          const float dxk = cu[o * 4 + 0] - cu[i * 4 + 0];
+          const float dyk = cu[o * 4 + 1] - cu[i * 4 + 1];
+          const bool over = dxk * dxk + dyk * dyk <= sig2;
+          const float dxm = pv[o * 4 + 0] - pv[i * 4 + 0];
+          const float dym = pv[o * 4 + 1] - pv[i * 4 + 1];
+          const float dvx = pv[o * 4 + 2] - pv[i * 4 + 2];
+          const float dvy = pv[o * 4 + 3] - pv[i * 4 + 3];
+          const float bb = dxm * dvx + dym * dvy;
+          const float dvv = dvx * dvx + dvy * dvy;
+          const float dpp = dxm * dxm + dym * dym;
+          const float disc = bb * bb - dvv * (dpp - sig2);
+          const bool ok = over && bb < 0.0f && disc >= 0.0f && dvv > 0.0f;
+          const float den = dvv == 0.0f ? 1.0f : dvv;
+          const float tau = clamp0(-(bb + sqrtf(clamp0(disc))) / den);
+          ptc[i][o] = ok ? tm + tau : INF_T;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!((todo >> e) & 1)) continue;
+      float best_t = INF_T;
+      int best_m = 0;
+#pragma unroll
+      for (int ax = 0; ax < 2; ++ax) {      // ax 0: y walls, 1: x walls
+        const int comp = ax == 0 ? 1 : 0;
+        const float pk = cu[e * 4 + comp], pm = pv[e * 4 + comp];
+        const float vm = pv[e * 4 + comp + 2];
+        const float bmr = ax == 0 ? K.bmry[e] : K.bmrx[e];
+        const float bound = ax == 0 ? K.halfy : K.halfx;
+        const float toward = vm >= 0.0f ? 1.0f : -1.0f;
+        const bool overlap = toward * pk + K.r[e] >= bound;
+        const float den = vm == 0.0f ? 1.0f : vm;
+        const float tau = clamp0((bmr * toward - pm) / den);
+        const float tc = (overlap && vm != 0.0f) ? tm + tau : INF_T;
+        const int cm = 16 * (vm >= 0.0f ? 2 * ax : 2 * ax + 1);
+        if (ax == 0 || tc < best_t) {
+          best_t = tc;
+          best_m = cm;
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < E; ++o) {
+        if (o == e) continue;
+        const float tc = o < e ? ptc[o][e] : ptc[e][o];
+        if (tc < best_t) {
+          best_t = tc;
+          best_m = 16 * 4 + o + 1;
+        }
+      }
+      const bool hit = valid && kk >= base[e] && best_t < K.dt;
+      const unsigned mask = __ballot_sync(FULL, hit);
+      if (mask != 0u) {
+        const int src = __ffs(mask) - 1;
+        const float bt = __shfl_sync(FULL, best_t, src);
+        const int bm = __shfl_sync(FULL, best_m, src);
+        st[e] = bt;
+        sj[e] = (bm & 15) - 1;
+        sc[e] = bm >> 4;
+        sv[e] = true;
+        todo &= ~(1 << e);
+      }
+    }
+  }
+}
+
+// A game on one warp: the grid in shared memory, sg[c * K1 + k]; in a
+// stochastic populate sg holds the noise plane on entry.
+struct WarpGame {
+  float* sg;
+  int K1, lane;
+  __device__ int first() const { return lane; }
+  __device__ float get(int c, int k) const { return sg[c * K1 + k]; }
+  __device__ void set(int c, int k, float v) const { sg[c * K1 + k] = v; }
+  __device__ float noise_at(int c, int k) const { return sg[c * K1 + k]; }
+  __device__ void sync() const { __syncwarp(); }
+  __device__ bool writer() const { return lane == 0; }
+};
 
 // Detect from the per-entity bases, then drop the events that involve an
 // already-scored puck (the slot is not searched again).
 __device__ __forceinline__ void detect_stacked(
-    const float* g, int B, int K1, int b, const Consts& K,
-    const int (&base)[E], bool scored, float (&st)[E], int (&sj)[E],
-    int (&sc)[E], bool (&sv)[E]) {
-  detect(g, B, K1, b, K, (1 << E) - 1, base, st, sj, sc, sv);
+    const WarpGame& gm, const Consts& K, const int (&base)[E], bool scored,
+    float (&st)[E], int (&sj)[E], int (&sc)[E], bool (&sv)[E]) {
+  detect_warp(gm.sg, gm.K1, K, base, gm.lane, st, sj, sc, sv);
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const bool pv = e == PUCK || (sc[e] == 4 && sj[e] == PUCK);
@@ -104,24 +230,16 @@ __device__ __forceinline__ void tail_at(const float* __restrict__ M6, int K1,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
-parallel_step_kernel(const Consts K, const float* __restrict__ M6,
-                     const float* __restrict__ FI,
-                     const float* __restrict__ SP,
-                     const float* __restrict__ x, const float* __restrict__ u,
-                     const float* __restrict__ meta,
-                     const float* __restrict__ dmgin,
-                     const float* __restrict__ noise, float* g,
-                     const float* __restrict__ carry_in,
-                     float* __restrict__ xout, float* __restrict__ aux,
-                     float* __restrict__ carry_out, int B, int K1, int mode,
-                     int cap) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// One game b's control step on the warp gm.
+__device__ __forceinline__ void run_game(
+    const WarpGame& gm, const Consts& K, const float* __restrict__ M6,
+    const float* __restrict__ FI, const float* __restrict__ SP,
+    const float* __restrict__ x, const float* __restrict__ u,
+    const float* __restrict__ meta, const float* __restrict__ dmgin,
+    bool noisy, const float* __restrict__ carry_in, float* __restrict__ xout,
+    float* __restrict__ aux, float* __restrict__ carry_out, int B, int K1,
+    int b, int mode, int cap) {
   const int G = K1 - 1;
-  auto gi = [=](int c, int k) -> size_t {
-    return ((size_t)c * K1 + k) * B + b;
-  };
   const float s0 = meta[b], s1 = meta[B + b], t0 = meta[2 * B + b];
   const bool undec = s0 < K.ws && s1 < K.ws;
 
@@ -148,7 +266,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int e = c / 4;
-      for (int k = 0; k <= G; ++k) {
+      for (int k = gm.first(); k <= G; k += WARP) {
         const float* m = M6 + ((size_t)c * K1 + k) * 6;
         float acc = m[0] * z[e * 4 + 0];
         acc = acc + m[1] * z[e * 4 + 1];
@@ -156,8 +274,8 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
         acc = acc + m[3] * z[e * 4 + 3];
         acc = acc + m[4] * z[20 + 2 * e];
         acc = acc + m[5] * z[21 + 2 * e];
-        if (noise != nullptr) acc = acc + noise[gi(c, k)];
-        g[gi(c, k)] = acc;
+        if (noisy) acc = acc + gm.noise_at(c, k);
+        gm.set(c, k, acc);
       }
     }
 #pragma unroll
@@ -165,6 +283,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
 #pragma unroll
     for (int r = 0; r < 16; ++r) dacc[r] = 0.0f;
   }
+  gm.sync();
   float ux[E], uy[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -175,7 +294,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
   float st[E];
   int sj[E], sc[E];
   bool sv[E];
-  detect_stacked(g, B, K1, b, K, base, scored, st, sj, sc, sv);
+  detect_stacked(gm, K, base, scored, st, sj, sc, sv);
 
   int it = 0;
   while (it < cap && (sv[0] || sv[1] || sv[2] || sv[3] || sv[4])) {
@@ -229,8 +348,8 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
       float xi[4], xj[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        xi[c] = g[gi(a * 4 + c, km1)];
-        xj[c] = g[gi(ej * 4 + c, km1)];
+        xi[c] = gm.get(a * 4 + c, km1);
+        xj[c] = gm.get(ej * 4 + c, km1);
       }
       const float r_i = pick(K.r, a), r_j = pick(K.r, ej);
       const float m_i = pick(K.m, a), m_j = pick(K.m, ej);
@@ -370,6 +489,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
     }
 
     // --- the tails of the claimed entities, corrected beyond the base
+    // (the columns over the lanes of a warp)
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       if (!clm[e]) continue;
@@ -390,7 +510,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
       const float rre = r_e + r_p;
       const float rs = rre > 0.0f ? rre : 1.0f;
       const float bre = K.buf * r_e / rs;
-      for (int k = bs; k <= G; ++k) {
+      for (int k = bs + gm.first(); k <= G; k += WARP) {
         float t[4];
         tail_at(M6, K1, e, k, zz[e], ux[e], uy[e], t);
         if (k > bs) {
@@ -408,21 +528,23 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
           }
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) g[gi(e * 4 + c, k)] = t[c];
+        for (int c = 0; c < 4; ++c) gm.set(e * 4 + c, k, t[c]);
       }
       base[e] = bs;
     }
+    gm.sync();
     scored = new_scored;
     actv += 1.0f;
     ++it;
-    detect_stacked(g, B, K1, b, K, base, scored, st, sj, sc, sv);
+    detect_stacked(gm, K, base, scored, st, sj, sc, sv);
   }
 
   // --- finalize: decided games keep their inputs, live games advance
+  if (!gm.writer()) return;
   const float u01 = undec ? 1.0f : 0.0f;
 #pragma unroll
   for (int c = 0; c < NC; ++c)
-    xout[c * B + b] = undec ? g[gi(c, G)] : x[c * B + b];
+    xout[c * B + b] = undec ? gm.get(c, G) : x[c * B + b];
   const bool pend = (sv[0] || sv[1] || sv[2] || sv[3] || sv[4]) && undec;
   aux[0 * B + b] = s0 + u01 * incA;
   aux[1 * B + b] = s1 + u01 * incB;
@@ -449,14 +571,56 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
   }
 }
 
+__global__ void __launch_bounds__(WARP * WPB)
+parallel_step_kernel(const Consts K, const float* __restrict__ M6,
+                          const float* __restrict__ FI,
+                          const float* __restrict__ SP,
+                          const float* __restrict__ x,
+                          const float* __restrict__ u,
+                          const float* __restrict__ meta,
+                          const float* __restrict__ dmgin,
+                          const float* __restrict__ noise, float* g,
+                          const float* __restrict__ carry_in,
+                          float* __restrict__ xout, float* __restrict__ aux,
+                          float* __restrict__ carry_out, int B, int K1,
+                          int mode, int cap) {
+  extern __shared__ float sgrid[];          // WPB games x NC x K1
+  const int lane = threadIdx.x & (WARP - 1);
+  const int w = threadIdx.x / WARP;
+  const int b0 = blockIdx.x * WPB;
+  const int nb = B - b0 < WPB ? B - b0 : WPB;
+  const int cells = NC * K1;
+  // the block's grids (resume) or noise planes (stochastic populate) in
+  const float* src = mode == MODE_RESUME ? g : noise;
+  if (src != nullptr)
+    for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
+      const int ww = e % nb, ck = e / nb;
+      sgrid[(size_t)ww * cells + ck] = src[(size_t)ck * B + b0 + ww];
+    }
+  __syncthreads();
+  if (w < nb) {
+    const WarpGame gm{sgrid + (size_t)w * cells, K1, lane};
+    run_game(gm, K, M6, FI, SP, x, u, meta, dmgin, noise != nullptr,
+             carry_in, xout, aux, carry_out, B, K1, b0 + w, mode, cap);
+  }
+  __syncthreads();
+  // ... and the grids out
+  for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
+    const int ww = e % nb, ck = e / nb;
+    g[(size_t)ck * B + b0 + ww] = sgrid[(size_t)ww * cells + ck];
+  }
+}
+
 }  // namespace
 
-// Launches K6 on `stream` and returns cudaGetLastError().  `consts` is a
-// host array of 82 floats (K1's); every other pointer is device memory.
-// M6 is (20, K1, 6), FI (80, K1), SP (40, K1).  `g` is the working grid
-// (20, K1, B): written by the populate, or holding the exported grid to
-// resume from; it is the export grid afterwards.  `noise`, `carry_in` and
-// `carry_out` may be null where the mode does not use them.
+// Launches K6 on `stream` and returns the CUDA error of the launch (0 when
+// it was accepted).  `consts` is a host array of 82 floats (K1's); every
+// other pointer is device memory.  M6 is (20, K1, 6), FI (80, K1), SP
+// (40, K1).  `g` is the working grid (20, K1, B): written by the populate,
+// or holding the exported grid to resume from; it is the export grid
+// afterwards.  `noise`, `carry_in` and `carry_out` may be null where the
+// mode does not use them.  A warp runs a game, WPB games a block, the
+// grids in shared memory.
 extern "C" int rg_parallel_step(const float* consts, const float* M6,
                                 const float* FI, const float* SP,
                                 const float* x, const float* u,
@@ -467,8 +631,14 @@ extern "C" int rg_parallel_step(const float* consts, const float* M6,
                                 int mode, int cap, void* stream) {
   Consts K;
   memcpy(&K, consts, sizeof(K));
-  const int blocks = (B + BLOCK - 1) / BLOCK;
-  parallel_step_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  const int bytes = WPB * NC * K1 * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      parallel_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + WPB - 1) / WPB;
+  parallel_step_kernel<<<blocks, WARP * WPB, bytes, st>>>(
       K, M6, FI, SP, x, u, meta, dmgin, noise, g, carry_in, xout, aux,
       carry_out, B, K1, mode, cap);
   return (int)cudaGetLastError();

@@ -12,6 +12,11 @@
 //   over-relaxation alpha; residuals and the adaptive rho update; the last
 //   segment's residuals give the convergence flag.
 //
+// This is K2's per-problem route: the CBF filter's distinct QPs, every
+// shape beyond csrc/qp_grouped.cu's (n <= 32, m <= 64) or group below 32,
+// and (rg_qp_admm_listed) the problems of a grouped launch that have an
+// equality row, whose indices and count that launch left on the device.
+//
 // Layout: one warp per problem.  The warp keeps A (m x n), K/L then Kinv
 // (n x n) and C (n x n) in shared memory, column-major with odd leading
 // dimensions so that lanes walking rows or columns hit distinct banks, plus
@@ -43,6 +48,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int WARP = 32;
@@ -51,6 +58,7 @@ constexpr int MAX_M = 256;
 constexpr int RN = MAX_N / WARP;        // variables per lane
 constexpr int MAX_WARPS = 4;            // problems per block
 constexpr size_t SMEM_MAX = 232448;     // a block's shared memory on H100
+constexpr int LISTED_BLOCKS = 1056;     // 8 blocks an SM for a listed launch
 
 __host__ __device__ inline int warp_floats(int n, int m) {
   const int ldn = n | 1, ldm = m | 1;
@@ -69,22 +77,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One problem p on one warp, in the warp's shared memory `smem`.
 // RM: constraint rows per lane, ceil(m / 32) rounded up to 1, 2, 4 or 8.
 template <int RM>
-__global__ void __launch_bounds__(WARP * MAX_WARPS)
-qp_admm_kernel(const float* __restrict__ H, const float* __restrict__ g,
-               const float* __restrict__ A, const float* __restrict__ l,
-               const float* __restrict__ u, float* __restrict__ xout,
-               float* __restrict__ stats, int P, int n, int m, int group,
-               int n_seg, int seg_iters, float rho, float sigma, float alpha,
-               float tol, float dual_tol) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void solve_one(
+    float* smem, int p, const float* __restrict__ H,
+    const float* __restrict__ g, const float* __restrict__ A,
+    const float* __restrict__ l, const float* __restrict__ u,
+    float* __restrict__ xout, float* __restrict__ stats, int n, int m,
+    int group, int n_seg, int seg_iters, float rho, float sigma, float alpha,
+    float tol, float dual_tol) {
   const int lane = threadIdx.x & (WARP - 1);
-  const int wib = threadIdx.x / WARP;
-  const int p = blockIdx.x * (blockDim.x / WARP) + wib;
-  if (p >= P) return;                       // the whole warp leaves together
   const int ldn = n | 1, ldm = m | 1;
-  float* As = smem + (size_t)wib * warp_floats(n, m);  // A[r][j] at j*ldm+r
+  float* As = smem;             // A[r][j] at j*ldm+r
   float* Ms = As + n * ldm;     // K -> L -> Kinv; M[i][j] at j*ldn+i
   float* Cs = Ms + n * ldn;     // C = L^-1;       C[i][j] at j*ldn+i
   float* ws = Cs + n * ldn;     // a row vector: rho, w, y
@@ -301,23 +306,107 @@ qp_admm_kernel(const float* __restrict__ H, const float* __restrict__ g,
 }
 
 template <int RM>
+__global__ void __launch_bounds__(WARP * MAX_WARPS)
+qp_admm_kernel(const float* __restrict__ H, const float* __restrict__ g,
+               const float* __restrict__ A, const float* __restrict__ l,
+               const float* __restrict__ u, float* __restrict__ xout,
+               float* __restrict__ stats, int P, int n, int m, int group,
+               int n_seg, int seg_iters, float rho, float sigma, float alpha,
+               float tol, float dual_tol) {
+  extern __shared__ float smem[];
+  const int wib = threadIdx.x / WARP;
+  const int p = blockIdx.x * (blockDim.x / WARP) + wib;
+  if (p >= P) return;                       // the whole warp leaves together
+  solve_one<RM>(smem + (size_t)wib * warp_floats(n, m), p, H, g, A, l, u,
+                xout, stats, n, m, group, n_seg, seg_iters, rho, sigma, alpha,
+                tol, dual_tol);
+}
+
+// The problems listed[0 .. *n_listed) only (a count on the device, so the
+// launch needs no host fetch): each warp takes every (gridDim.x * warps)-th.
+template <int RM>
+__global__ void __launch_bounds__(WARP * MAX_WARPS)
+qp_admm_listed_kernel(const float* __restrict__ H,
+                      const float* __restrict__ g,
+                      const float* __restrict__ A,
+                      const float* __restrict__ l,
+                      const float* __restrict__ u, float* __restrict__ xout,
+                      float* __restrict__ stats,
+                      const int* __restrict__ listed,
+                      const int* __restrict__ n_listed,
+                      unsigned long long* __restrict__ routed, int n, int m,
+                      int group, int n_seg, int seg_iters, float rho,
+                      float sigma, float alpha, float tol, float dual_tol) {
+  extern __shared__ float smem[];
+  const int warps = blockDim.x / WARP;
+  const int wib = threadIdx.x / WARP;
+  const int count = *n_listed;
+  if (routed != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&routed[1], (unsigned long long)count);
+  for (int q = blockIdx.x * warps + wib; q < count; q += gridDim.x * warps) {
+    solve_one<RM>(smem + (size_t)wib * warp_floats(n, m), listed[q], H, g, A,
+                  l, u, xout, stats, n, m, group, n_seg, seg_iters, rho,
+                  sigma, alpha, tol, dual_tol);
+    __syncwarp();
+  }
+}
+
+// listed == nullptr: every problem; else the listed ones.
+template <int RM>
 int launch(const float* H, const float* g, const float* A, const float* l,
-           const float* u, float* x, float* stats, int P, int n, int m,
-           int group, int n_seg, int seg_iters, float rho, float sigma,
-           float alpha, float tol, float dual_tol, cudaStream_t stream) {
+           const float* u, float* x, float* stats, const int* listed,
+           const int* n_listed, unsigned long long* routed, int P, int n,
+           int m, int group, int n_seg, int seg_iters, float rho,
+           float sigma, float alpha, float tol, float dual_tol,
+           cudaStream_t stream) {
   const size_t per_warp = (size_t)warp_floats(n, m) * sizeof(float);
   int warps = MAX_WARPS;
   while (warps > 1 && warps * per_warp > SMEM_MAX) warps /= 2;
   const size_t bytes = warps * per_warp;
-  cudaError_t err = cudaFuncSetAttribute(
-      qp_admm_kernel<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + warps - 1) / warps), block(WARP * warps);
-  qp_admm_kernel<RM><<<grid, block, bytes, stream>>>(
-      H, g, A, l, u, x, stats, P, n, m, group, n_seg, seg_iters, rho, sigma,
-      alpha, tol, dual_tol);
+  int blocks = (P + warps - 1) / warps;
+  cudaError_t err;
+  if (listed == nullptr) {
+    err = cudaFuncSetAttribute(qp_admm_kernel<RM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    qp_admm_kernel<RM><<<blocks, WARP * warps, bytes, stream>>>(
+        H, g, A, l, u, x, stats, P, n, m, group, n_seg, seg_iters, rho,
+        sigma, alpha, tol, dual_tol);
+  } else {
+    err = cudaFuncSetAttribute(qp_admm_listed_kernel<RM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    blocks = blocks < LISTED_BLOCKS ? blocks : LISTED_BLOCKS;
+    qp_admm_listed_kernel<RM><<<blocks, WARP * warps, bytes, stream>>>(
+        H, g, A, l, u, x, stats, listed, n_listed, routed, n, m, group,
+        n_seg, seg_iters, rho, sigma, alpha, tol, dual_tol);
+  }
   return (int)cudaGetLastError();
+}
+
+int dispatch(const float* H, const float* g, const float* A, const float* l,
+             const float* u, float* x, float* stats, const int* listed,
+             const int* n_listed, unsigned long long* routed, int P, int n,
+             int m, int group, int n_seg, int seg_iters, float rho,
+             float sigma, float alpha, float tol, float dual_tol,
+             void* stream) {
+  if (n < 1 || n > MAX_N || m < 1 || m > MAX_M || P < 1 || group < 1 ||
+      P % group != 0 || n_seg < 1 || seg_iters < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rm = (m + WARP - 1) / WARP;
+  auto run = [&](auto tag) {
+    constexpr int R = decltype(tag)::value;
+    return launch<R>(H, g, A, l, u, x, stats, listed, n_listed, routed, P, n,
+                     m, group, n_seg, seg_iters, rho, sigma, alpha, tol,
+                     dual_tol, st);
+  };
+  if (rm <= 1) return run(std::integral_constant<int, 1>());
+  if (rm <= 2) return run(std::integral_constant<int, 2>());
+  if (rm <= 4) return run(std::integral_constant<int, 4>());
+  return run(std::integral_constant<int, 8>());
 }
 
 }  // namespace
@@ -332,20 +421,23 @@ extern "C" int rg_qp_admm(const float* H, const float* g, const float* A,
                           int n_seg, int seg_iters, float rho, float sigma,
                           float alpha, float tol, float dual_tol,
                           void* stream) {
-  if (n < 1 || n > MAX_N || m < 1 || m > MAX_M || P < 1 || group < 1 ||
-      P % group != 0 || n_seg < 1 || seg_iters < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int rm = (m + WARP - 1) / WARP;
-  if (rm <= 1)
-    return launch<1>(H, g, A, l, u, x, stats, P, n, m, group, n_seg,
-                     seg_iters, rho, sigma, alpha, tol, dual_tol, st);
-  if (rm <= 2)
-    return launch<2>(H, g, A, l, u, x, stats, P, n, m, group, n_seg,
-                     seg_iters, rho, sigma, alpha, tol, dual_tol, st);
-  if (rm <= 4)
-    return launch<4>(H, g, A, l, u, x, stats, P, n, m, group, n_seg,
-                     seg_iters, rho, sigma, alpha, tol, dual_tol, st);
-  return launch<8>(H, g, A, l, u, x, stats, P, n, m, group, n_seg,
-                   seg_iters, rho, sigma, alpha, tol, dual_tol, st);
+  return dispatch(H, g, A, l, u, x, stats, nullptr, nullptr, nullptr, P, n,
+                  m, group, n_seg, seg_iters, rho, sigma, alpha, tol,
+                  dual_tol, stream);
+}
+
+// The same over the problems listed[0 .. *n_listed) of the P only (the
+// equality-row problems of a grouped launch, csrc/qp_grouped.cu); the count
+// stays on the device.  routed[1] (may be null) accumulates the count.
+extern "C" int rg_qp_admm_listed(const float* H, const float* g,
+                                 const float* A, const float* l,
+                                 const float* u, float* x, float* stats,
+                                 const int* listed, const int* n_listed,
+                                 unsigned long long* routed, int P, int n,
+                                 int m, int group, int n_seg, int seg_iters,
+                                 float rho, float sigma, float alpha,
+                                 float tol, float dual_tol, void* stream) {
+  return dispatch(H, g, A, l, u, x, stats, listed, n_listed, routed, P, n, m,
+                  group, n_seg, seg_iters, rho, sigma, alpha, tol, dual_tol,
+                  stream);
 }

@@ -6,7 +6,10 @@ Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
 source and the flags), and bound with ``ctypes``:
 
 * K1, ``csrc/exact_step.cu``: the event-order-exact control step;
-* K2, ``csrc/qp_admm.cu``: the batched dense ADMM QP solve;
+* K2, ``csrc/qp_grouped.cu``: the batched ADMM QP solve of problems that
+  share H and A (a factor setup per group, then the factor-free
+  iterations over tiles of problems), and ``csrc/qp_admm.cu``: the same
+  solve one problem a warp, for every other problem;
 * K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve;
 * K4, ``csrc/cmpc_sqp.cu``: the fused joint two-player CMPC SQP solve;
 * K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve;
@@ -26,23 +29,30 @@ import it freely.
 
 Flags (``flags``): every library builds with ``-O3`` for ``sm_90a``, no
 fast math, IEEE division and correctly rounded square root.  ``FMAD`` says
-which may contract a product and a sum into one FMA: K3 (``dmpc_sqp``) and
-K4 (``cmpc_sqp``) do (``-fmad=true``, and ``-Xptxas=-v``, whose report
-lands in ``build_log``), as they are held to their plain versions by
-tolerance and to lie no further from the f64 solution than the plain f32
-version; K1, K2, K5 and K6 build with ``-fmad=false``, so each f32
-operation is the one their plain versions do (K1 and K6 are held to theirs
-bitwise).
+which may contract a product and a sum into one FMA: K2's grouped route
+(``qp_grouped``), K3 (``dmpc_sqp``) and K4 (``cmpc_sqp``) do
+(``-fmad=true``, and ``-Xptxas=-v``, whose report lands in
+``build_log``), as they are held to their plain versions by tolerance and
+to lie no further from the f64 solution than the plain f32 version
+(``profile_qp.py``, ``profile_sqp.py``); K1, K2's per-problem kernel, K5
+and K6 build with ``-fmad=false``, so each f32 operation is the one their
+plain versions do (K1 and K6 are held to theirs bitwise).
 
 ``occupancy(name, N, n_obs)`` asks K3's or K4's library for the problems
 an SM it runs (one a block; the card's occupancy calculator) and its
-shared bytes a problem.
+shared bytes a problem; ``qp_grouped_occupancy()`` asks the same of K2's
+grouped iterations (80 problems a block).
 
 Launch counters, added to only by the launch paths below: ``launches``
-holds K1's per mode, ``qp_launches`` K2's per (n, m) shape,
-``sqp_launches`` K3's per (n1, m_own) shape, ``cmpc_launches`` K4's and
-``joint_launches`` K5's per (n1, m_own, m_pair) shape,
-``parallel_launches`` K6's per mode.
+holds K1's per mode, ``qp_launches`` K2's per-problem launches per (n, m)
+shape, ``qp_grouped_launches`` its grouped launches (the setup and the
+iterations, one count) and ``qp_listed_launches`` the per-problem launches
+over a grouped launch's equality-row problems, ``sqp_launches`` K3's per
+(n1, m_own) shape, ``cmpc_launches`` K4's and ``joint_launches`` K5's per
+(n1, m_own, m_pair) shape, ``parallel_launches`` K6's per mode.
+:func:`k2_routes` reads how many problems each K2 route solved since
+:func:`reset_launches` (the grouped ones and the listed ones are counted
+on the device).
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
            "qp_admm": _PKG / "csrc" / "qp_admm.cu",
+           "qp_grouped": _PKG / "csrc" / "qp_grouped.cu",
            "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu",
            "cmpc_sqp": _PKG / "csrc" / "cmpc_sqp.cu",
            "qp_joint": _PKG / "csrc" / "qp_joint.cu",
@@ -77,7 +88,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the libraries built with FMA contraction (the others with -fmad=false);
 # their builds also report ptxas's registers, spills and shared memory
 # (``build_log``)
-FMAD = {"dmpc_sqp", "cmpc_sqp"}
+FMAD = {"dmpc_sqp", "cmpc_sqp", "qp_grouped"}
 
 
 def flags(name: str) -> list:
@@ -91,11 +102,15 @@ launches = {mode: 0 for mode in _MODE_ID}
 _PARALLEL_MODE_ID = {"full": 0, "export": 1, "resume": 2}
 parallel_launches = {mode: 0 for mode in _PARALLEL_MODE_ID}
 qp_launches: dict = {}
+qp_grouped_launches: dict = {}
+qp_listed_launches: dict = {}
 sqp_launches: dict = {}
 cmpc_launches: dict = {}
 joint_launches: dict = {}
 build_seconds: dict = {}
 build_log: dict = {}         # nvcc's messages of each library built here
+_routed: dict = {}           # device -> int64 (2,): grouped, listed problems
+_qp_direct: dict = {}        # K2's per-problem launches' problems, per shape
 _libs: dict = {}
 
 
@@ -103,8 +118,11 @@ def reset_launches() -> None:
     for counts in (launches, parallel_launches):
         for mode in counts:
             counts[mode] = 0
-    for counts in (qp_launches, sqp_launches, cmpc_launches, joint_launches):
+    for counts in (qp_launches, qp_grouped_launches, qp_listed_launches,
+                   _qp_direct, sqp_launches, cmpc_launches, joint_launches):
         counts.clear()
+    for c in _routed.values():
+        c.zero_()
 
 
 def _nvcc() -> str:
@@ -168,6 +186,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "exact_step": ("rg_exact_step", [_P] * 13 + [_I] * 4 + [_P]),
     "qp_admm": ("rg_qp_admm", [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P]),
+    "qp_grouped": ("rg_qp_grouped", [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P]),
     "dmpc_sqp": ("rg_dmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
     "cmpc_sqp": ("rg_cmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
     "qp_joint": ("rg_qp_joint", [_P] * 9 + [_I] * 6 + [_F] * 6 + [_P]),
@@ -180,18 +199,27 @@ _OCCUPANCY = {"dmpc_sqp": "rg_dmpc_sqp_occupancy",
               "cmpc_sqp": "rg_cmpc_sqp_occupancy"}
 
 
+# further entry points of a library: (name, argument types)
+_EXTRA = {
+    "qp_admm": [("rg_qp_admm_listed", [_P] * 10 + [_I] * 6 + [_F] * 5
+                 + [_P])],
+    "qp_grouped": [("rg_qp_grouped_setup", [_P] * 4 + [_I] * 3 + [_F, _P]),
+                   ("rg_qp_grouped_occupancy", [_P])],
+}
+
+
 def _library(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
         fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        extra = list(_EXTRA.get(name, []))
         if name in _OCCUPANCY:
-            occ = getattr(lib, _OCCUPANCY[name])
-            occ.argtypes = [_I, _I, _P]
-            occ.restype = ctypes.c_int
+            extra.append((_OCCUPANCY[name], [_I, _I, _P]))
+        for fn_name, argtypes in [(fn_name, argtypes), *extra]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -264,9 +292,9 @@ def exact_step(M6, consts: np.ndarray, x, u, meta, dmg, noise, rnoise,
 
 def parallel_step(M6, FI, SP, consts: np.ndarray, x, u, meta, dmg, noise,
                   grid_in, carry_in, mode: str, cap: int):
-    """Launch K6 over B games on the current stream.  Returns (xout (20,B),
-    aux (24,B), grid (20,G+1,B), carry (32,B) or None); ``grid_in`` is
-    copied, not modified."""
+    """Launch K6 over B games on the current stream, a warp a game.
+    Returns (xout (20,B), aux (24,B), grid (20,G+1,B), carry (32,B)
+    or None); ``grid_in`` is copied, not modified."""
     dev = x.device
     B = x.shape[1]
     K1 = M6.shape[1]
@@ -308,6 +336,106 @@ def parallel_step(M6, FI, SP, consts: np.ndarray, x, u, meta, dmg, noise,
     return xout, aux, grid, carry
 
 
+def _routed_counter(dev):
+    c = _routed.get(dev)
+    if c is None:
+        c = _routed[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return c
+
+
+def k2_routes() -> dict:
+    """The problems K2 solved since :func:`reset_launches`, by route:
+    ``grouped`` (``csrc/qp_grouped.cu``), ``listed`` (a grouped launch's
+    equality-row problems on the per-problem kernel) and ``per_problem``
+    (the per-problem kernel's own launches).  One host fetch."""
+    got = [0, 0]
+    for c in _routed.values():
+        got = [a + int(b) for a, b in zip(got, c.tolist())]
+    return {"grouped": got[0], "listed": got[1],
+            "per_problem": sum(_qp_direct.values())}
+
+
+def qp_grouped(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,
+               rho: float, sigma: float, alpha: float, tol: float):
+    """K2's grouped route over P = g.shape[0] problems on the current
+    stream: H (G, n, n) and A (G, m, n) shared by groups of ``group``,
+    g (P, n), l/u (P, m).  Launches the setup and the iterations
+    (``csrc/qp_grouped.cu``), then the per-problem kernel over the problems
+    with an equality row, whose list and count stay on the device.
+    Returns x (P, n) and stats (P, 3) = [converged, prim_res, dual_res]."""
+    dev = g.device
+    P, n = g.shape
+    m = A.shape[1]
+    G = P // group
+    for name, t, shape in (("H", H, (G, n, n)), ("g", g, (P, n)),
+                           ("A", A, (G, m, n)), ("l", l, (P, m)),
+                           ("u", u, (P, m))):
+        _check(name, t, shape, dev)
+    x = torch.empty((P, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    if P == 0:
+        return x, stats
+    W = torch.empty((G, 32, 32), dtype=torch.float32, device=dev)
+    lam = torch.empty((G, 32), dtype=torch.float32, device=dev)
+    listed = torch.empty(P, dtype=torch.int32, device=dev)
+    n_listed = torch.empty(1, dtype=torch.int32, device=dev)
+    routed = _routed_counter(dev)
+    args = (int(group), int(n_seg), int(seg_iters), float(rho),
+            float(sigma), float(alpha), float(tol), float(10.0 * tol))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("qp_grouped").rg_qp_grouped(
+            _ptr(H), _ptr(g), _ptr(A), _ptr(l), _ptr(u), _ptr(W), _ptr(lam),
+            _ptr(x), _ptr(stats), _ptr(listed), _ptr(n_listed),
+            _ptr(routed), P, n, m, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"K2 grouped launch failed: cudaError {err} "
+                               f"(P={P}, n={n}, m={m}, group={group})")
+        qp_grouped_launches[(n, m)] = qp_grouped_launches.get((n, m), 0) + 1
+        err = _library("qp_admm").rg_qp_admm_listed(
+            _ptr(H), _ptr(g), _ptr(A), _ptr(l), _ptr(u), _ptr(x),
+            _ptr(stats), _ptr(listed), _ptr(n_listed), _ptr(routed), P, n, m,
+            *args, stream)
+    if err != 0:
+        raise RuntimeError(f"K2 listed launch failed: cudaError {err} "
+                           f"(P={P}, n={n}, m={m}, group={group})")
+    qp_listed_launches[(n, m)] = qp_listed_launches.get((n, m), 0) + 1
+    return x, stats
+
+
+def qp_grouped_setup(H, A, sigma: float):
+    """The grouped route's setup kernel alone on G operands H (G, n, n),
+    A (G, m, n): returns W (G, 32, 32) and lam (G, 32) (zero beyond n).
+    Counts no launch."""
+    dev = H.device
+    G, n = H.shape[0], H.shape[-1]
+    m = A.shape[1]
+    _check("H", H, (G, n, n), dev)
+    _check("A", A, (G, m, n), dev)
+    W = torch.empty((G, 32, 32), dtype=torch.float32, device=dev)
+    lam = torch.empty((G, 32), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("qp_grouped").rg_qp_grouped_setup(
+            _ptr(H), _ptr(A), _ptr(W), _ptr(lam), G, n, m, float(sigma),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"K2 setup launch failed: cudaError {err}")
+    return W, lam
+
+
+def qp_grouped_occupancy() -> dict:
+    """The blocks (80 problems each) of K2's grouped iterations an SM runs
+    on the current card, and their shared bytes."""
+    out = (ctypes.c_int * 2)()
+    err = _library("qp_grouped").rg_qp_grouped_occupancy(
+        ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qp_grouped occupancy query failed: cudaError "
+                           f"{err}")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1]}
+
+
 def qp_admm(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,
             rho: float, sigma: float, alpha: float, tol: float):
     """Launch K2 over P = g.shape[0] problems on the current stream: H
@@ -336,6 +464,7 @@ def qp_admm(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,
         raise RuntimeError(f"K2 launch failed: cudaError {err} "
                            f"(P={P}, n={n}, m={m}, group={group})")
     qp_launches[(n, m)] = qp_launches.get((n, m), 0) + 1
+    _qp_direct[(n, m)] = _qp_direct.get((n, m), 0) + P
     return x, stats
 
 

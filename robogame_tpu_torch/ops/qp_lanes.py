@@ -2,16 +2,24 @@
 
 Counterpart of the JAX package's ``ops/qp_pallas.py::solve_qp_lanes``: the
 same problem form and ADMM as :func:`.qp.solve_qp` (its plain version),
-over a mandatory leading problem axis.  For CUDA tensors it launches K2
-(``csrc/qp_admm.cu`` through ``kernels.qp_admm``) or raises; for CPU
-tensors it runs :func:`.qp.solve_qp`.
+over a mandatory leading problem axis.  For CPU tensors it runs
+:func:`.qp.solve_qp`; for CUDA tensors it launches K2 on one of two routes
+or raises:
+
+* grouped (``csrc/qp_grouped.cu`` through ``kernels.qp_grouped``; plain
+  version :func:`solve_qp_grouped_plain`), where :func:`grouped_route`
+  holds: one factor setup per shared operand, then the factor-free
+  iterations; its problems with an equality row go on to the per-problem
+  kernel within the same call;
+* per-problem (``csrc/qp_admm.cu`` through ``kernels.qp_admm``), for every
+  other call.
 
 Shared operands: H (G, n, n) and A (G, m, n) hold G distinct matrices and
 problem p of the P = G * group problems reads operand p // group.  The
 classical skills' 16 final-time candidates share one H and one A each
-across every game (group = games), so the kernel reads 16 matrices where a
-broadcast would materialise one per problem; the CBF filter's QPs are all
-distinct (group = 1).  g (P, n) and l/u (P, m) are per problem.
+across every game (group = games, the grouped route); the CBF filter's QPs
+are all distinct (group = 1, the per-problem route).  g (P, n) and l/u
+(P, m) are per problem.
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ def solve_qp_lanes(H, g, A, l, u, iters: int = 50, n_seg: int = 4,
             raise ValueError(f"K2 supports n <= {MAX_N} variables and "
                              f"m <= {MAX_M} rows, got n={n}, m={m}")
         from .. import kernels
-        x, stats = kernels.qp_admm(
+        launch = kernels.qp_grouped if grouped_route(n, m, group) else \
+            kernels.qp_admm
+        x, stats = launch(
             H.contiguous(), g.contiguous(), A.contiguous(), l.contiguous(),
             u.contiguous(), group, n_seg, max(1, iters // n_seg), rho,
             sigma, alpha, tol)
@@ -67,6 +77,122 @@ def solve_qp_lanes(H, g, A, l, u, iters: int = 50, n_seg: int = 4,
         A = A.repeat_interleave(group, dim=0)
     return solve_qp(H, g, A, l, u, iters=iters, rho=rho, sigma=sigma,
                     alpha=alpha, tol=tol, n_seg=n_seg)
+
+
+# ---------------------------------------------------------------------------
+# K2's grouped algebra: one factorization per shared operand
+# ---------------------------------------------------------------------------
+#
+# The problems of a group share H and A and differ in g, l, u and their own
+# rho.  With no equality row, every row of a problem takes its scalar
+# rho_p, so K_p = M0 + rho_p M1 with M0 = H + sigma I and M1 = A'A, both
+# the group's, and one generalized eigendecomposition of the pair serves
+# every rho:
+#
+#     K_p^-1 = W diag(1 / (1 + rho_p lam)) W',
+#
+# from M0 = R R' (positive definite for sigma > 0) and R^-1 M1 R^-T =
+# V diag(lam) V', W = R^-T V.  No problem factors anything: an ADMM
+# iteration is the products A'w, W'r, W t and A x with a per-problem
+# diagonal in the middle.  The factors come once per group in f64 and are
+# used in f32.  The grouped kernel (``csrc/qp_grouped.cu``) takes
+# n <= GROUPED_MAX_N, m <= GROUPED_MAX_M and groups of at least
+# GROUPED_MIN problems; a problem with an equality row (l == u, whose row
+# takes 1e3 rho) is outside the algebra and goes to the per-problem
+# kernel.
+
+GROUPED_MAX_N, GROUPED_MAX_M = 32, 64
+GROUPED_MIN = 32
+
+
+def grouped_route(n: int, m: int, group: int) -> bool:
+    """Whether ``solve_qp_lanes`` takes the grouped kernel at this shape."""
+    return group >= GROUPED_MIN and n <= GROUPED_MAX_N and \
+        m <= GROUPED_MAX_M
+
+
+def grouped_factors(H, A, sigma: float):
+    """The f64 factors of G shared operands: W (G, n, n) and lam (G, n)
+    with (H + sigma I + rho A'A)^-1 = W diag(1 / (1 + rho lam)) W' for
+    every rho."""
+    Hd, Ad = H.double(), A.double()
+    eye = torch.eye(H.shape[-1], dtype=torch.float64, device=H.device)
+    R = torch.linalg.cholesky(Hd + sigma * eye)
+    Ri = torch.linalg.solve_triangular(R, eye.expand_as(R), upper=False)
+    lam, V = torch.linalg.eigh(Ri @ Ad.transpose(-1, -2) @ Ad
+                               @ Ri.transpose(-1, -2))
+    return Ri.transpose(-1, -2) @ V, lam
+
+
+@plain_version
+def solve_qp_grouped_plain(H, g, A, l, u, group: int, iters: int = 50,
+                           n_seg: int = 4, rho: float = 1.0,
+                           sigma: float = 1e-6, alpha: float = 1.6,
+                           tol: float = 1e-3) -> QpSolution:
+    """The plain PyTorch version of K2's grouped route: H (G, n, n),
+    A (G, m, n) shared by the ``group`` problems of each group, g (P, n),
+    l/u (P, m), P = G * group, rows already scaled.  The factors of
+    :func:`grouped_factors` rounded to the working dtype, then the
+    factor-free ADMM with :func:`.qp.solve_qp`'s rho adaptation, residuals
+    and flags; problems with an equality row are solved by
+    :func:`.qp.solve_qp`, as the kernel route hands them to the
+    per-problem kernel.  On CUDA tensors TF32 matmuls must be off, as for
+    :func:`.qp.solve_qp`."""
+    if g.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("solve_qp_grouped_plain needs full-f32 matmuls: "
+                           "set torch.backends.cuda.matmul.allow_tf32 = "
+                           "False")
+    G, n = H.shape[0], H.shape[-1]
+    P = g.shape[0]
+    dtype = g.dtype
+    Wd, lamd = grouped_factors(H, A, sigma)
+    W, lam = Wd.to(dtype)[:, None], lamd.to(dtype)[:, None, None]
+    Wt = W.transpose(-1, -2)
+    Ab, At = A[:, None], A.transpose(-1, -2)[:, None]
+    gg, lg, ug = (t.reshape(G, group, 1, -1) for t in (g, l, u))
+    sigma_t = torch.full((), sigma, dtype=dtype, device=g.device)
+    alpha_t = torch.full((), alpha, dtype=dtype, device=g.device)
+    one_m_alpha = 1 - alpha_t
+    tr = H.diagonal(dim1=-2, dim2=-1).sum(-1)
+    rho_s = (torch.clamp(tr / n, 1e-3, 1e6) * rho)[:, None, None, None] \
+        .expand(G, group, 1, 1)
+    x = torch.zeros_like(gg)
+    z = torch.zeros_like(lg)
+    y = torch.zeros_like(z)
+    seg_iters = max(1, iters // n_seg)
+    for _ in range(n_seg):
+        d = 1 / (1 + rho_s * lam)
+        for _ in range(seg_iters):
+            rhs = sigma_t * x - gg + (rho_s * z - y) @ Ab
+            x = (d * (rhs @ W)) @ Wt
+            Ax = x @ At
+            z_t = alpha_t * Ax + one_m_alpha * z
+            z_new = torch.minimum(torch.maximum(z_t + y / rho_s, lg), ug)
+            y = y + rho_s * (z_t - z_new)
+            z = z_new
+        Ax = x @ At
+        Hx = x @ H.transpose(-1, -2)[:, None]
+        Aty = y @ Ab
+        prim = _amax(Ax - z)
+        dual = _amax(Hx + gg + Aty)
+        p_sc = torch.maximum(_amax(Ax), _amax(z)) + 1e-9
+        d_sc = torch.maximum(torch.maximum(_amax(Hx), _amax(Aty)),
+                             _amax(gg)) + 1e-9
+        ratio = torch.sqrt((prim / p_sc) / (dual / d_sc + 1e-12))
+        rho_s = torch.clamp(rho_s * torch.clamp(ratio, 0.2, 5.0)[..., None],
+                            1e-6, 1e8)
+    conv = (prim < tol * p_sc) & (dual < 10.0 * tol * d_sc)
+    sol = QpSolution(x=x.reshape(P, n), converged=conv.reshape(P),
+                     prim_res=prim.reshape(P), dual_res=dual.reshape(P))
+    eq = (l == u).any(-1)
+    if bool(eq.any()):
+        idx = eq.nonzero()[:, 0]
+        per = solve_qp(H[idx // group], g[idx], A[idx // group], l[idx],
+                       u[idx], iters=iters, rho=rho, sigma=sigma,
+                       alpha=alpha, tol=tol, n_seg=n_seg)
+        for full, part in zip(sol, per):
+            full[idx] = part
+    return sol
 
 
 # ---------------------------------------------------------------------------

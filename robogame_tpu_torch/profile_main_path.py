@@ -24,9 +24,11 @@ more traced.
 
 Each traces with ``torch.profiler`` and prints the wall time per step, the
 device time per kernel name, the device's busy share of the traced wall
-time, and a split into K1, K2 (skills and CBF: the kernel's template
-argument is its rows per lane, 2 for the skills' 60 rows and 1 for the
-CBF's 20), K3, K4, K5, K6 and the glue kernels.  Needs a CUDA device.
+time, and a split into K1, K2 (the skills on the grouped route: its
+setup, its iterations and the per-problem kernel's launch over the
+equality-row problems; the CBF QPs on the per-problem kernel, whose
+template argument is its rows per lane, 1 for the CBF's 20), K3, K4, K5,
+K6 and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,14 +42,19 @@ import torch
 
 B, HOLD, STEPS = 8192, 10, 40
 B_CL, WARM_CL, STEPS_CL = 512, 100, 20
-# kernel-name fragments of the split
+# kernel-name fragments of the split (a kernel counts in the first group
+# whose fragment its name holds)
 GROUPS = (("K1 exact_step", "exact_step_kernel"),
-          ("K2 skills (n=30, m=60)", "qp_admm_kernel<2>"),
+          ("K2 skills, grouped setup", "grouped_setup_kernel"),
+          ("K2 skills, grouped iterations (n=30, m=60)",
+           "grouped_admm_kernel"),
+          ("K2 skills, per-problem over equality rows",
+           "qp_admm_listed_kernel"),
           ("K2 CBF (n=8, m=20)", "qp_admm_kernel<1>"),
           ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"),
           ("K4 CMPC SQP (n1=40, m_own=80, m_pair=20)", "cmpc_sqp_kernel"),
           ("K5 joint QP", "qp_joint_kernel"),
-          ("K6 parallel_step", "parallel_step_kernel"))
+          ("K6 parallel_step", "parallel_step"))
 
 
 def _bench(rt, mc, dev, engine="pallas_exact"):

@@ -20,6 +20,7 @@ import importlib
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from robogame_tpu.agents import classical as jcl
@@ -33,6 +34,14 @@ from robogame_tpu_torch.agents import classical as tcl
 from robogame_tpu_torch.control import trajopt as ttraj
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
 
 jmc = importlib.import_module("robogame_tpu.parallel.monte_carlo")
 tmc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")

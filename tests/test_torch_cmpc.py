@@ -38,6 +38,14 @@ from robogame_tpu_torch.ops import qp_lanes, sqp_lanes
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 JP = JParams(dtype="float32")
 TP = rt.SimParams(dtype="float32")
 NEAR_TIE = 1e-3

@@ -24,6 +24,14 @@ from robogame_tpu_torch.physics import dynamics as tdyn
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_NAMES = sorted(s[:-5] for s in os.listdir(GOLDEN)

@@ -6,8 +6,9 @@ Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-The kernels are built with IEEE division and square root; K1, K2, K5 and
-K6 with -fmad=false, K3 and K4 with FMA contraction.  K1 and K6 run their
+The kernels are built with IEEE division and square root; K1, K2's
+per-problem kernel, K5 and K6 with -fmad=false, K2's grouped kernels, K3
+and K4 with FMA contraction.  K1 and K6 run their
 plain versions' f32 operations in the same order, so each is held to be
 equal to its plain version bitwise, which also covers chaotic grinding
 games; K2-K5 are held by tolerance (see their sections below)."""
@@ -112,14 +113,22 @@ def test_step_batch_on_the_card_equals_the_cpu(dev):
 # the plain version by tolerance (x within 2e-3 + 1e-2 |x| where both
 # converged, flags agreeing on >= 99% of the problems), not bitwise.
 
-def _qps(dev, P, n, m, G=None, n_eq=0, seed=0):
+def _qps(dev, P, n, m, G=None, n_eq=0, seed=0, share=None, at_hi=False):
+    """P random strictly convex QPs over G shared H and A; n_eq equality
+    rows in every problem, or (``share``) in about that share of them,
+    drawn in -0.5..0.5 or (``at_hi``) pinned at the upper bound."""
     rng = np.random.default_rng(seed)
     G = P if G is None else G
     Q = rng.normal(size=(G, n, n))
     H = np.einsum("bij,bkj->bik", Q, Q) / n + np.eye(n) / 10.0
     lo = rng.uniform(-2.0, 0.0, (P, m))
     hi = rng.uniform(0.1, 2.0, (P, m))
-    lo[:, :n_eq] = hi[:, :n_eq] = rng.uniform(-0.5, 0.5, (P, n_eq))
+    rows = slice(None) if share is None else rng.random(P) < share
+    if at_hi:
+        lo[rows, :n_eq] = hi[rows, :n_eq]
+    else:
+        lo[rows, :n_eq] = hi[rows, :n_eq] = rng.uniform(
+            -0.5, 0.5, (P, n_eq))[rows]
     return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
         H, rng.normal(size=(P, n)), rng.normal(size=(G, m, n)), lo, hi)]
 
@@ -135,10 +144,14 @@ def test_k2_agrees_with_plain(dev, P, n, m, G, n_eq, scale_rows, iters):
     from robogame_tpu_torch.ops import qp, qp_lanes
     H, g, A, lo, hi = _qps(dev, P, n, m, G, n_eq)
     group = P // H.shape[0]
-    before = kernels.qp_launches.get((n, m), 0)
+    # the skills' shape takes the grouped route, the others the
+    # per-problem kernel
+    count = kernels.qp_grouped_launches if qp_lanes.grouped_route(
+        n, m, group) else kernels.qp_launches
+    before = count.get((n, m), 0)
     k = qp_lanes.solve_qp_lanes(H, g, A, lo, hi, iters=iters, group=group,
                                 scale_rows=scale_rows)
-    assert kernels.qp_launches[(n, m)] == before + 1
+    assert count[(n, m)] == before + 1
     p = qp.solve_qp(H.repeat_interleave(group, 0), g,
                     A.repeat_interleave(group, 0), lo, hi, iters=iters,
                     scale_rows=scale_rows)
@@ -149,15 +162,117 @@ def test_k2_agrees_with_plain(dev, P, n, m, G, n_eq, scale_rows, iters):
         2e-3 + 1e-2 * p.x.abs()[both]).all())
 
 
+def _k2_held(k, p):
+    """k held against p by test_k2_agrees_with_plain's thresholds: flags
+    agree on >= 99%, and where both converged x within 2e-3 + 1e-2 |x|."""
+    assert float((k.converged == p.converged).float().mean()) >= 0.99
+    both = k.converged & p.converged
+    assert bool((k.x - p.x).abs()[both].le(
+        2e-3 + 1e-2 * p.x.abs()[both]).all())
+
+
 def test_k2_shared_operands_equal_broadcast_bitwise(dev):
+    """The grouped route runs another algebra than the per-problem kernel
+    (one factorization per shared operand), so it is not the broadcast
+    call to the bit: two grouped launches are equal bitwise, and the
+    grouped route agrees with the per-problem kernel on the broadcast
+    operands within K2's tolerances."""
+    from robogame_tpu_torch import kernels
     from robogame_tpu_torch.ops import qp_lanes
     H, g, A, lo, hi = _qps(dev, 16 * 256, 30, 60, G=16, seed=3)
+    kernels.reset_launches()
     a = qp_lanes.solve_qp_lanes(H, g, A, lo, hi, iters=60, group=256)
+    a2 = qp_lanes.solve_qp_lanes(H, g, A, lo, hi, iters=60, group=256)
     b = qp_lanes.solve_qp_lanes(H.repeat_interleave(256, 0), g,
                                 A.repeat_interleave(256, 0), lo, hi,
                                 iters=60)
-    for x, y in zip(a, b):
+    torch.cuda.synchronize()
+    assert kernels.qp_grouped_launches == {(30, 60): 2}
+    assert kernels.qp_launches == {(30, 60): 1}
+    for x, y in zip(a, a2):
         assert torch.equal(x, y)
+    _k2_held(a, b)
+
+
+@pytest.mark.parametrize("P,n,m,G,n_eq,share,at_hi,scale_rows", [
+    (16 * 640, 30, 60, 16, 0, 0.0, False, False),   # the skills' shape
+    (16 * 640, 30, 60, 16, 3, 0.05, False, False),  # equality rows in 5%
+    (16 * 640, 30, 60, 16, 3, 0.05, True, False),   # ... at the upper bound
+    (4 * 250, 17, 41, 4, 2, 0.05, False, True),     # odd, partial tiles
+    (2 * 400, 32, 64, 2, 1, 0.05, False, False),    # the largest grouped
+])
+def test_k2_grouped_route_agrees_with_plain(dev, P, n, m, G, n_eq, share,
+                                            at_hi, scale_rows):
+    """The grouped route against solve_qp by test_k2_agrees_with_plain's
+    thresholds: flags agree on >= 99% of all problems, and where both
+    converged x lies within 2e-3 + 1e-2 |x| on every problem the grouped
+    kernel solved.  The problems with an equality row go to the
+    per-problem kernel in the same call (their count read on the device)
+    and equal that kernel's own launch on the broadcast operands bitwise;
+    their x is held within the same tolerance on all but 0.1% of the
+    converged problems, chip_smoke.py's k2_vs_plain allowance: at 1e3 rho
+    a stopped f32 ADMM iterate of these problems moves with the order of
+    the sums, and the per-problem kernel lies outside on about one in 300
+    of them (profile_qp.py holds both f32 routes against f64 there;
+    PERF.md).  The problems by route are counted."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.ops import qp, qp_lanes
+    H, g, A, lo, hi = _qps(dev, P, n, m, G, n_eq, seed=P + m, share=share,
+                           at_hi=at_hi)
+    group = P // G
+    kernels.reset_launches()
+    k = qp_lanes.solve_qp_lanes(H, g, A, lo, hi, iters=60, group=group,
+                                scale_rows=scale_rows)
+    routes = kernels.k2_routes()
+    Hb, Ab = H.repeat_interleave(group, 0), A.repeat_interleave(group, 0)
+    p = qp.solve_qp(Hb, g, Ab, lo, hi, iters=60, scale_rows=scale_rows)
+    eq = (lo == hi).any(-1)
+    per = qp_lanes.solve_qp_lanes(Hb[eq], g[eq], Ab[eq], lo[eq], hi[eq],
+                                  iters=60, scale_rows=scale_rows)
+    torch.cuda.synchronize()
+    n_eq_problems = int(eq.sum())
+    assert (n_eq_problems > 0) == (n_eq > 0)
+    assert routes == {"grouped": P - n_eq_problems,
+                      "listed": n_eq_problems, "per_problem": 0}
+    assert kernels.qp_grouped_launches == {(n, m): 1}
+    assert kernels.qp_listed_launches == {(n, m): 1}
+    assert float((k.converged == p.converged).float().mean()) >= 0.99
+    both = k.converged & p.converged
+    off = both & (k.x - p.x).abs().gt(2e-3 + 1e-2 * p.x.abs()).any(-1)
+    assert not bool(off[~eq].any())
+    assert int(off.sum()) <= int(both.sum()) // 1000
+    for a, b in zip(k, per):
+        assert torch.equal(a[eq], b)
+
+
+@pytest.mark.parametrize("rho", [1e-2, 1.0, 1e2])
+def test_k2_setup_kinv_matches_f64_inverse(dev, rho):
+    """The grouped route's setup kernel: W diag(1/(1 + rho lam)) W' from
+    its f32 factors against the f64 inverse of H + sigma I + rho A'A, on
+    the skills' operands and on random ones with fewer rows than
+    variables (A'A singular).  Held within 1e-4 of the
+    largest entry of the inverse: the factors come from f64 and are
+    rounded once to f32, and the skills' K reaches a condition number of
+    some 1e5 at the smallest rho."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.control import trajopt as tt
+    grid = tt._grid(rt.SimParams(), torch.float32, dev)
+    Hr, _, Ar, _, _ = _qps(dev, 4, 24, 16, G=4, seed=9)
+    for H, A in ((grid.H, grid.A), (Hr, Ar)):
+        n = H.shape[-1]
+        W, lam = kernels.qp_grouped_setup(H, A, 1e-6)
+        Wd, ld = W[:, :n, :n].double(), lam[:, :n].double()
+        Ad = A.double()
+        K = H.double() + 1e-6 * torch.eye(n, dtype=torch.float64,
+                                          device=dev) + \
+            rho * Ad.transpose(1, 2) @ Ad
+        Kinv = torch.linalg.inv(K)
+        got = Wd @ torch.diag_embed(1.0 / (1.0 + rho * ld)) @ \
+            Wd.transpose(1, 2)
+        scale = Kinv.abs().amax((1, 2), keepdim=True)
+        assert float(((got - Kinv).abs() / scale).max()) <= 1e-4
+        assert float(W[:, n:].abs().max()) == 0.0
+        assert float(W[:, :, n:].abs().max()) == 0.0
 
 
 def test_k2_refuses_unsupported_shapes(dev):
@@ -486,6 +601,37 @@ def test_k6_equals_plain_in_every_mode(dev, stochastic):
             assert torch.equal(kr[0], qr[0]) and torch.equal(kr[1], qr[1])
     assert kernels.parallel_launches["full"] == n0["full"] + 1
     assert kernels.parallel_launches["resume"] == n0["resume"] + 1
+
+
+def test_k6_resume_odd_batch_at_the_cap_with_noise(dev):
+    """B=253 corner grinders (not a multiple of the 4 games a block): a
+    stochastic export at cap 1 and the resume from its grid and carry,
+    games reaching the loop cap, bitwise equal to the plain version."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics.sweep import game_draws, populate_noise
+    B = 253
+    s, u = _corner_states6(dev, B, 27)
+    p = P6.replace(stochastic=True, noise=1.0)
+    planes = ex._to_planes(s)
+    up = ex._u_plane(u, B)
+    (xp,), _ = game_draws(s, (p.grid_points,))
+    npl = ex._noise_plane(populate_noise(xp, p))
+    T = ex._tabs(p, dev)
+    k = kernels.parallel_step(T.M6, T.FI, T.SP, T.consts, planes[0], up,
+                              planes[1], planes[2], npl, None, None,
+                              "export", 1)
+    q = pst.parallel_step_plain(T, planes[0], up, planes[1], planes[2], npl,
+                                None, None, "export", 1)
+    for a, b in zip(k, q):
+        assert torch.equal(a, b)
+    kr = kernels.parallel_step(T.M6, T.FI, T.SP, T.consts, planes[0], up,
+                               planes[1], planes[2], None, k[2], k[3],
+                               "resume", 49)
+    qr = pst.parallel_step_plain(T, planes[0], up, planes[1], planes[2],
+                                 None, q[2], q[3], "resume", 49)
+    for a, b in zip(kr[:3], qr[:3]):
+        assert torch.equal(a, b)
+    assert float(kr[1][4].max()) == 49          # some games at the cap
 
 
 def test_k6_twophase_equals_one_phase_in_the_kernel(dev):

@@ -37,6 +37,14 @@ from robogame_tpu_torch.control import dmpc as tdm
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 tmc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
 
 JP = JParams(dtype="float32", engine="pallas_exact", winning_score=4)

@@ -14,6 +14,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from robogame_tpu.config import SimParams as JParams
@@ -23,6 +24,14 @@ from robogame_tpu.state import initial_state as j_initial_state
 import robogame_tpu_torch as rt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
@@ -45,15 +54,22 @@ def _step_both(s, u):
     return sj, st
 
 
+@jax.jit
+def _j_states(x0s):
+    """JAX's initial states of games seeded 1..B with the puck at x0s, one
+    jitted program (one compile instead of one per eager op)."""
+    keys = jax.vmap(jax.random.PRNGKey)(
+        jnp.arange(1, x0s.shape[0] + 1, dtype=jnp.uint32))
+    return jax.vmap(lambda k, x0: j_initial_state(JP, x0_puck=x0, seed=k))(
+        keys, x0s)
+
+
 def test_random_play_per_step_matches_jax():
     B = 16          # the corner test's batch: one compile of the JAX step
     rng = np.random.default_rng(5)
     x0s = np.concatenate([np.tile([3.2, 0.1, 9.0, 0.0], (B // 2, 1)),
                           np.tile([0.0, 0.3, 2.0, 1.0], (B // 2, 1))])
-    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(1, B + 1,
-                                                   dtype=jnp.uint32))
-    s = jax.vmap(lambda k, x0: j_initial_state(JP, x0_puck=x0, seed=k))(
-        keys, jnp.asarray(x0s, jnp.float32))
+    s = _j_states(jnp.asarray(x0s, jnp.float32))
     goals = 0
     for _ in range(20):
         u = rng.uniform(-8, 8, (B, 4, 2)).astype(np.float32)

@@ -9,6 +9,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from robogame_tpu.config import SimParams as JParams
@@ -18,6 +19,14 @@ from robogame_tpu.state import initial_state as j_initial_state
 import robogame_tpu_torch as rt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -32,8 +41,8 @@ def test_golden_kick_goal_scores_match_jax():
                  engine="pallas_exact")
     tp = rt.SimParams(dt=meta["dt"], winning_score=100, dtype="float32",
                       engine="pallas_exact")
-    sj = jax.vmap(lambda k: j_initial_state(jp, x0_puck=meta["x0"],
-                                            seed=k))(
+    sj = jax.jit(jax.vmap(lambda k: j_initial_state(jp, x0_puck=meta["x0"],
+                                                    seed=k)))(
         jax.vmap(jax.random.PRNGKey)(jnp.zeros(1, jnp.uint32)))
     st = rt.initial_state(tp, x0_puck=meta["x0"], device="cpu")
     for k in range(meta["n_steps"]):

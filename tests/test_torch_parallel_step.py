@@ -13,6 +13,7 @@ entity each iteration where the sweep engine keeps the slots of untouched
 entities, and it re-propagates through z = Finvpow[base] (x_base - Spow
 u) where the sweep engine applies Fpow[k - base] to x_base."""
 
+import functools
 import json
 import os
 import sys
@@ -36,6 +37,14 @@ from robogame_tpu_torch.physics.sweep import _substep_affine_np
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched  # noqa: E402
 
@@ -49,11 +58,17 @@ RANDOM_X0 = np.concatenate([np.tile([3.2, 0.1, 9.0, 0.0], (4, 1)),   # scoring
 
 
 def _j_states(jp, x0s):
-    B = len(x0s)
-    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(1, B + 1,
-                                                   dtype=jnp.uint32))
+    return _j_states_jit(jp, jnp.asarray(x0s, jnp.float32))
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _j_states_jit(jp, x0s):
+    """JAX's initial states of games seeded 1..B, one jitted program (one
+    compile instead of one per eager op)."""
+    keys = jax.vmap(jax.random.PRNGKey)(
+        jnp.arange(1, x0s.shape[0] + 1, dtype=jnp.uint32))
     return jax.vmap(lambda k, x0: j_initial_state(jp, x0_puck=x0, seed=k))(
-        keys, jnp.asarray(x0s, jnp.float32))
+        keys, x0s)
 
 
 def _port(s):

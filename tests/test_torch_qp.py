@@ -12,7 +12,12 @@ package's, on the same inputs made with numpy.
 * At the classical skills' shape (n=30, m=60) and DMPC's (40, 140, row
   scaling) against JAX's vmapped ``solve_qp``.
 * Shared operands: a grouped call equals the broadcast call bitwise.
+* K2's grouped algebra (``solve_qp_grouped_plain``: one f64 factorization
+  per shared operand, then the factor-free ADMM in f32) at the skills'
+  shape against JAX's vmapped ``solve_qp`` and the port's in f64.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +32,18 @@ from robogame_tpu.ops.qp_pallas import solve_qp_lanes as j_solve_qp_lanes
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.control import trajopt as tt
 from robogame_tpu_torch.models import lqsys as tlq
+from robogame_tpu_torch.ops import qp, qp_lanes
 from robogame_tpu_torch.ops.qp_lanes import solve_qp_lanes
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
 
 
 def make_qps(B, n, m, seed=0, n_eq=0, cond=10.0):
@@ -48,8 +62,15 @@ def make_qps(B, n, m, seed=0, n_eq=0, cond=10.0):
     return H, g, A, l, u
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_solver(kw):
+    """JAX's solve_qp vmapped over problems, one jitted program per set of
+    keyword arguments (one compile instead of one per eager op)."""
+    return jax.jit(jax.vmap(lambda *a: j_solve_qp(*a, **dict(kw))))
+
+
 def _jax_vmapped(qp, **kw):
-    return jax.vmap(lambda *a: j_solve_qp(*a, **kw))(
+    return _jax_solver(tuple(sorted(kw.items())))(
         *(jnp.asarray(a) for a in qp))
 
 
@@ -131,6 +152,43 @@ def test_skills_shape_matches_jax_solve_qp():
         np.testing.assert_allclose(got.prim_res.numpy(),
                                    np.asarray(ref.prim_res), rtol=1e-2,
                                    atol=1e-5)
+    assert got.converged.numpy().mean() > 0.5
+
+
+def _skills_qps(seed=11):
+    """The classical skills' own condensed QPs: 16 final-time candidates of
+    4 reach problems (n=30, m=60); candidate k of problem b is problem
+    4 k + b and shares grid.H[k], grid.A[k]."""
+    rng = np.random.default_rng(seed)
+    x0, xf = (torch.from_numpy(np.concatenate(
+        [rng.uniform(-3, 3, (4, 2)), rng.uniform(-2, 2, (4, 2))],
+        1).astype(np.float32)) for _ in range(2))
+    grid, _, g, lo, hi = tt.candidate_qps(x0, xf, rt.SimParams())
+    return grid.H, g, grid.A, lo, hi
+
+
+@pytest.mark.parametrize("ref", ["jax", "f64"])
+def test_grouped_plain_matches_jax_solve_qp_and_f64(ref):
+    """The grouped algebra on the skills' QPs at 60 iterations, against
+    JAX's vmapped f32 ``solve_qp`` ("jax") and against the port's
+    ``solve_qp`` in f64 ("f64"): flags equal and x within
+    test_skills_shape_matches_jax_solve_qp's tolerance (atol 2e-3, rtol
+    1e-2): another factorization of the same K, so the iterates part by
+    f32 roundoff only."""
+    H, g, A, lo, hi = _skills_qps()
+    got = qp_lanes.solve_qp_grouped_plain(H, g, A, lo, hi, group=4,
+                                          iters=60)
+    Hb, Ab = H.repeat_interleave(4, 0), A.repeat_interleave(4, 0)
+    if ref == "jax":
+        want = _jax_vmapped((Hb.numpy(), g.numpy(), Ab.numpy(), lo.numpy(),
+                             hi.numpy()), iters=60)
+        x, conv = np.asarray(want.x), np.asarray(want.converged)
+    else:
+        want = qp.solve_qp(*(t.double() for t in (Hb, g, Ab, lo, hi)),
+                           iters=60)
+        x, conv = want.x.numpy(), want.converged.numpy()
+    np.testing.assert_allclose(got.x.numpy(), x, atol=2e-3, rtol=1e-2)
+    np.testing.assert_array_equal(got.converged.numpy(), conv)
     assert got.converged.numpy().mean() > 0.5
 
 

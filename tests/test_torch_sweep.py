@@ -9,6 +9,8 @@ to roundoff: measured at most 4.5e-16 in f64 and 2.4e-7 in f32 over 25
 steps of random play and corner pile-ups (damage equal), held here to
 1e-12 and 1e-5.  Scores are exact."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,14 @@ from robogame_tpu_torch.physics.sweep import _affine_tables
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 B, HALF = 16, 8
 # scoring runs and bouncy runs (tests/test_pallas.py:29-48), then corner
 # pile-ups (tests/test_pallas.py:152-172: every player driven at (-8, -8))
@@ -41,7 +51,9 @@ def _controls(rng, dtype):
     return u.astype(dtype)
 
 
+@functools.partial(jax.jit, static_argnums=0)
 def _j_states(jp):
+    """JAX's initial states (one jitted program, not one per eager op)."""
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(1, B + 1,
                                                    dtype=jnp.uint32))
     return jax.vmap(lambda k, x0: j_initial_state(jp, x0_puck=x0, seed=k))(
@@ -78,8 +90,8 @@ def test_detect_matches_jax_on_random_grids():
     t0 = rng.uniform(0.0, 5.0, n)
     mine = _detect(grid, torch.from_numpy(base), torch.from_numpy(t0), p,
                    torch.tensor(p.radii, dtype=torch.float64))
-    ref = jax.vmap(lambda g, b, t: j_detect(g, b, t, jp,
-                                            jnp.asarray(jp.radii)))(
+    ref = jax.jit(jax.vmap(lambda g, b, t: j_detect(
+        g, b, t, jp, jnp.asarray(jp.radii))))(
         jnp.asarray(grid.numpy()), jnp.asarray(base, jnp.int32),
         jnp.asarray(t0))
     valid = np.asarray(ref.valid)

@@ -18,6 +18,14 @@ from robogame_tpu_torch.physics import sweep as tsw
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _inference_mode():
+    """Nothing here is differentiated: the module's torch work runs in
+    inference mode, without autograd's per-operation bookkeeping."""
+    with torch.inference_mode():
+        yield
+
 CONFIGS = [dict(), dict(dt=0.02, grid_points=20, tau_player=0.3,
                         tau_puck=1.0)]
 
