@@ -16,31 +16,34 @@
 // slots and re-detect only the touched entities; loop until no slot is
 // valid or `cap` events ran; finalize (decided games keep their inputs).
 //
-// What bounds it on the H100: f32 operations on the CUDA cores, latency-
-// bound.  Per game the populate is 1020 six-term sums and every detect
-// column is up to 10 pair and 10 wall-axis candidate tests; an event adds
-// two RK4 resolves and a sequential re-propagation over up to 50 columns.
-// The data moved is small (the export grid is 4 KB a game), so the bytes
+// What bounds it on the H100: the latency of dependent per-game chains on
+// the CUDA cores.  Per game the populate is 1020 six-term sums and every
+// detect column is up to 10 pair and 10 wall-axis candidate tests; an event
+// adds two RK4 resolves and a sequential re-propagation over up to 50
+// columns.  The data moved is small (the grid is 4 KB a game), so the bytes
 // bound is far below the time the dependent per-game chains take.
 //
-// Design (first, simple and right):
-// * one thread per game (the TPU's lane <-> game becomes thread <-> game),
-//   32 games per block so that 8192 games spread over 256 blocks on the
-//   132 SMs;
-// * the grid lives in device memory in the JAX plane layout [20][G+1][B],
-//   so a warp's accesses to one (component, column) are one coalesced
-//   128-byte line; at B = 8192 the 33 MB of grid stays in the 50 MB L2;
-// * detect stops at the first qualifying column instead of scanning all
-//   51 with 0/1 blends, and re-detects only the touched entities;
-// * the feedback re-propagation writes straight into the grid (the TPU
-//   kernel's role slabs and blend-store scatter are not needed);
-// * the populate reads the 6 non-zeros of each row of M, summed in a fixed
-//   order that the plain version repeats.
+// Design: a warp per game, WPB = 4 games a block (K6's layout).
+// * The block's games read their grids (resume) or populate-noise planes
+//   (stochastic populate) from the plane layout [20][G+1][B] into shared
+//   memory together, WPB consecutive games a (component, column), and write
+//   the grids back the same way at the end; in between a game's grid (20 x
+//   51 floats, 4 KB) never leaves shared memory.  In stochastic mode the
+//   re-propagation noise plane is staged beside it.  The compacted resume
+//   of 512 pending games is 512 warps on 128 blocks, over all 132 SMs.
+// * The populate's 1020 cells are split over the lanes, each the same
+//   six-term sum in the same order.
+// * Detect is step_common.cuh's detect_warp (K6's): the columns over the
+//   lanes, the first qualifying one by __ballot_sync / __ffs; after an
+//   event only the touched entities are re-detected, from the event's
+//   column on.
+// * Pop, resolve, the damage and goal bookkeeping and the feedback
+//   re-propagation (each column's corrected position feeds the next, so it
+//   cannot be split over columns) run in their serial order on every lane
+//   alike (warp-uniform), reading and writing the grid in shared memory.
 // Built with -fmad=false and IEEE division and square root: every f32
 // operation is the one the plain version does, in the same order, so the
-// two agree on chaotic grinding games as well.  Making it fast (shared-
-// memory tiling of the grid, warp-per-game detect, CUDA graphs over the
-// control-step loop) is later work.
+// kernel and the plain version agree bitwise.
 
 #include <cuda_runtime.h>
 #include <string.h>
@@ -52,23 +55,18 @@ namespace {
 using namespace rg_step;
 enum { MODE_EXACT = 0, MODE_EXPORT = 1, MODE_RESUME = 2 };
 
-__global__ void __launch_bounds__(BLOCK)
-exact_step_kernel(const Consts K, const float* __restrict__ M6,
-                  const float* __restrict__ x, const float* __restrict__ u,
-                  const float* __restrict__ meta,
-                  const float* __restrict__ dmgin,
-                  const float* __restrict__ noise,
-                  const float* __restrict__ rnoise, float* g,
-                  const float* __restrict__ carry_in,
-                  float* __restrict__ xout, float* __restrict__ aux,
-                  float* __restrict__ carry_out, int B, int K1, int mode,
-                  int cap) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// One game b's control step on a warp: its grid in shared memory at sg
+// (sg[c * K1 + k], holding the populate noise on entry in a stochastic
+// populate, the exported grid in a resume), its re-propagation noise at
+// srn (null when deterministic).
+__device__ __forceinline__ void run_game(
+    float* sg, const float* srn, const Consts& K, const float* __restrict__ M6,
+    const float* __restrict__ x, const float* __restrict__ u,
+    const float* __restrict__ meta, const float* __restrict__ dmgin,
+    bool noisy, const float* __restrict__ carry_in, float* __restrict__ xout,
+    float* __restrict__ aux, float* __restrict__ carry_out, int B, int K1,
+    int b, int mode, int cap, int lane) {
   const int G = K1 - 1;
-  auto gi = [=](int c, int k) -> size_t {
-    return ((size_t)c * K1 + k) * B + b;
-  };
   const float s0 = meta[b], s1 = meta[B + b], t0 = meta[2 * B + b];
   const bool undec = s0 < K.ws && s1 < K.ws;
 
@@ -103,7 +101,7 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int e = c / 4;
-      for (int k = 0; k <= G; ++k) {
+      for (int k = lane; k <= G; k += WARP) {
         const float* m = M6 + ((size_t)c * K1 + k) * 6;
         float acc = m[0] * z[e * 4 + 0];
         acc = acc + m[1] * z[e * 4 + 1];
@@ -111,13 +109,21 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
         acc = acc + m[3] * z[e * 4 + 3];
         acc = acc + m[4] * z[20 + 2 * e];
         acc = acc + m[5] * z[21 + 2 * e];
-        if (noise != nullptr) acc = acc + noise[gi(c, k)];
-        g[gi(c, k)] = acc;
+        if (noisy) acc = acc + sg[c * K1 + k];
+        sg[c * K1 + k] = acc;
       }
     }
 #pragma unroll
     for (int r = 0; r < 16; ++r) dacc[r] = 0.0f;
-    detect(g, B, K1, b, K, (1 << E) - 1, 1, st, sj, sc, sv);
+    __syncwarp();
+    const int ones[E] = {1, 1, 1, 1, 1};
+    detect_warp(sg, K1, K, (1 << E) - 1, ones, lane, st, sj, sc, sv);
+  }
+  float ux[E], uy[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    ux[e] = u[(2 * e) * B + b];
+    uy[e] = u[(2 * e + 1) * B + b];
   }
 
   int it = 0;
@@ -149,35 +155,39 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
     int km1 = (int)(tp / K.dtcol);
     km1 = km1 < 0 ? 0 : (km1 > G - 1 ? G - 1 : km1);
     const int bn = km1 + 1;
+    float* gi = sg + a * 4 * K1;         // entity a's rows
+    float* gj = sg + ej * 4 * K1;        // entity ej's rows
     float xi[4], xj[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      xi[c] = g[gi(a * 4 + c, km1)];
-      xj[c] = g[gi(ej * 4 + c, km1)];
+      xi[c] = gi[c * K1 + km1];
+      xj[c] = gj[c * K1 + km1];
     }
     const float r_i = pick(K.r, a), r_j = pick(K.r, ej);
     const float m_i = pick(K.m, a), m_j = pick(K.m, ej);
     const float tau_i = pick(K.tau, a), tau_j = pick(K.tau, ej);
     const float drag_i = pick(K.drag, a), drag_j = pick(K.drag, ej);
-    const float uix = u[(2 * a) * B + b], uiy = u[(2 * a + 1) * B + b];
-    const float ujx = u[(2 * ej) * B + b], ujy = u[(2 * ej + 1) * B + b];
+    const float uix = pick(ux, a), uiy = pick(uy, a);
+    const float ujx = pick(ux, ej), ujy = pick(uy, ej);
     const float fa_i = pick(K.sa, a), fb_i = pick(K.sb, a);
     const float fa_j = pick(K.sa, ej), fb_j = pick(K.sb, ej);
     const float sci = pick(K.sc, a), sdi = pick(K.sd, a);
     const float scj = pick(K.sc, ej), sdj = pick(K.sd, ej);
     const float su_i[4] = {sci * uix, sci * uiy, sdi * uix, sdi * uiy};
     const float su_j[4] = {scj * ujx, scj * ujy, sdj * ujx, sdj * ujy};
+    const float* ni = srn == nullptr ? nullptr : srn + a * 4 * K1;
+    const float* nj = srn == nullptr ? nullptr : srn + ej * 4 * K1;
 
     const float dt_t = tp - (float)km1 * K.dtcol;
     float xit[4], xjt[4];
     rk4(xi, uix, uiy, tau_i, drag_i, dt_t, xit);
     rk4(xj, ujx, ujy, tau_j, drag_j, dt_t, xjt);
-    if (rnoise != nullptr) {
+    if (srn != nullptr) {
       // one substep of re-propagation noise at t_pop, before the impulse
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        xit[c] = xit[c] + rnoise[gi(a * 4 + c, bn)];
-        xjt[c] = xjt[c] + rnoise[gi(ej * 4 + c, bn)];
+        xit[c] = xit[c] + ni[c * K1 + bn];
+        xjt[c] = xjt[c] + nj[c * K1 + bn];
       }
     }
 
@@ -274,25 +284,28 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
     rj[2] = xjb[2];
     rj[3] = xjb[3];
 
-    // --- sequential feedback re-propagation, straight into the grid
+    // --- sequential feedback re-propagation into the shared grid (every
+    // lane computes and stores the same values, once every lane has read
+    // what the last detect read)
+    __syncwarp();
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      g[gi(a * 4 + c, bn)] = ri[c];
-      if (is_pair) g[gi(ej * 4 + c, bn)] = rj[c];
+      gi[c * K1 + bn] = ri[c];
+      if (is_pair) gj[c * K1 + bn] = rj[c];
     }
     for (int k = bn + 1; k <= G; ++k) {
       float pi[4] = {ri[0] + fa_i * ri[2] + su_i[0], ri[1] + fa_i * ri[3] + su_i[1],
                      fb_i * ri[2] + su_i[2], fb_i * ri[3] + su_i[3]};
-      if (rnoise != nullptr) {
+      if (srn != nullptr) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) pi[c] = pi[c] + rnoise[gi(a * 4 + c, k)];
+        for (int c = 0; c < 4; ++c) pi[c] = pi[c] + ni[c * K1 + k];
       }
       if (is_pair) {
         float pj[4] = {rj[0] + fa_j * rj[2] + su_j[0], rj[1] + fa_j * rj[3] + su_j[1],
                        fb_j * rj[2] + su_j[2], fb_j * rj[3] + su_j[3]};
-        if (rnoise != nullptr) {
+        if (srn != nullptr) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) pj[c] = pj[c] + rnoise[gi(ej * 4 + c, k)];
+          for (int c = 0; c < 4; ++c) pj[c] = pj[c] + nj[c * K1 + k];
         }
         const float dx = pj[0] - pi[0], dy = pj[1] - pi[1];
         const float ov = rr - sqrtf(dx * dx + dy * dy);
@@ -313,10 +326,11 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
       ri[3] = pi[3];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        g[gi(a * 4 + c, k)] = ri[c];
-        if (is_pair) g[gi(ej * 4 + c, k)] = rj[c];
+        gi[c * K1 + k] = ri[c];
+        if (is_pair) gj[c * K1 + k] = rj[c];
       }
     }
+    __syncwarp();
 
     // --- slot bookkeeping: slots naming a touched entity are dropped
     // without recompute; the touched entities are re-detected from bn
@@ -328,14 +342,16 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
       const bool jt = (sj[e] == a || (is_pair && sj[e] == ej)) && sj[e] >= 0;
       sv[e] = sv[e] && !jt;
     }
-    detect(g, B, K1, b, K, want, bn, st, sj, sc, sv);
+    const int bns[E] = {bn, bn, bn, bn, bn};
+    detect_warp(sg, K1, K, want, bns, lane, st, sj, sc, sv);
   }
 
   // --- finalize: decided games keep their inputs, live games advance
+  if (lane != 0) return;
   const float u01 = undec ? 1.0f : 0.0f;
 #pragma unroll
   for (int c = 0; c < NC; ++c)
-    xout[c * B + b] = undec ? g[gi(c, G)] : x[c * B + b];
+    xout[c * B + b] = undec ? sg[c * K1 + G] : x[c * B + b];
   const bool pend = (sv[0] || sv[1] || sv[2] || sv[3] || sv[4]) && undec;
   aux[0 * B + b] = s0 + u01 * incA;
   aux[1 * B + b] = s1 + u01 * incB;
@@ -367,14 +383,50 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
   }
 }
 
+__global__ void __launch_bounds__(WARP * WPB)
+exact_step_kernel(const Consts K, const float* __restrict__ M6,
+                  const float* __restrict__ x, const float* __restrict__ u,
+                  const float* __restrict__ meta,
+                  const float* __restrict__ dmgin,
+                  const float* __restrict__ noise,
+                  const float* __restrict__ rnoise, float* g,
+                  const float* __restrict__ carry_in,
+                  float* __restrict__ xout, float* __restrict__ aux,
+                  float* __restrict__ carry_out, int B, int K1, int mode,
+                  int cap) {
+  // WPB grids, then (stochastic) WPB re-propagation noise planes
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & (WARP - 1);
+  const int w = threadIdx.x / WARP;
+  const int b0 = blockIdx.x * WPB;
+  const int nb = B - b0 < WPB ? B - b0 : WPB;
+  const int cells = NC * K1;
+  float* srn = rnoise == nullptr ? nullptr : smem + (size_t)WPB * cells;
+  // the block's grids (resume) or populate noise planes in, and the
+  // re-propagation noise planes
+  const float* src = mode == MODE_RESUME ? g : noise;
+  if (src != nullptr) planes_in(smem, src, B, K1, b0, nb);
+  if (srn != nullptr) planes_in(srn, rnoise, B, K1, b0, nb);
+  __syncthreads();
+  if (w < nb)
+    run_game(smem + (size_t)w * cells,
+             srn == nullptr ? nullptr : srn + (size_t)w * cells, K, M6, x, u,
+             meta, dmgin, mode != MODE_RESUME && noise != nullptr, carry_in,
+             xout, aux, carry_out, B, K1, b0 + w, mode, cap, lane);
+  __syncthreads();
+  // ... and the grids out
+  planes_out(smem, g, B, K1, b0, nb);
+}
+
 }  // namespace
 
-// Launches K1 on `stream` and returns cudaGetLastError().  `consts` is a
-// host array of 82 floats; every other pointer is device memory.  `g` is
-// the working grid (20, K1, B): written by the populate, or holding the
-// exported grid to resume from; it is the export grid afterwards.
-// `noise`, `rnoise`, `carry_in` and `carry_out` may be null where the
-// mode does not use them.
+// Launches K1 on `stream` and returns the CUDA error of the launch (0 when
+// it was accepted).  `consts` is a host array of 82 floats; every other
+// pointer is device memory.  `g` is the working grid (20, K1, B): written
+// by the populate, or holding the exported grid to resume from; it is the
+// export grid afterwards.  `noise`, `rnoise`, `carry_in` and `carry_out`
+// may be null where the mode does not use them.  A warp runs a game, WPB
+// games a block, the grids (and re-propagation noise) in shared memory.
 extern "C" int rg_exact_step(const float* consts, const float* M6,
                              const float* x, const float* u,
                              const float* meta, const float* dmgin,
@@ -384,8 +436,14 @@ extern "C" int rg_exact_step(const float* consts, const float* M6,
                              int mode, int cap, void* stream) {
   Consts K;
   memcpy(&K, consts, sizeof(K));
-  const int blocks = (B + BLOCK - 1) / BLOCK;
-  exact_step_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  const int bytes =
+      (rnoise == nullptr ? 1 : 2) * WPB * NC * K1 * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      exact_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + WPB - 1) / WPB;
+  exact_step_kernel<<<blocks, WARP * WPB, bytes, st>>>(
       K, M6, x, u, meta, dmgin, noise, rnoise, g, carry_in, xout, aux,
       carry_out, B, K1, mode, cap);
   return (int)cudaGetLastError();

@@ -39,9 +39,8 @@
 //   in between a game's grid (20 x 51 floats, 4 KB) never leaves shared
 //   memory.  The compacted resume of 512 pending games is 512 warps on
 //   128 blocks, about 4 warps an SM over all 132 SMs.
-// * Detect (detect_warp): the lanes take the columns, 32 at a time from
-//   the least base; each lane evaluates the qualifying tests of its column
-//   exactly as step_common.cuh's detect does, and an entity's first
+// * Detect (step_common.cuh's detect_warp, shared with K1): the lanes take
+//   the columns, 32 at a time from the least base, and an entity's first
 //   qualifying column is the lowest lane with a hit (__ballot_sync,
 //   __ffs), its event broadcast with __shfl_sync.
 // * The populate's cells, and the re-propagated tails' columns >= base,
@@ -63,114 +62,6 @@ namespace {
 
 using namespace rg_step;
 enum { MODE_FULL = 0, MODE_EXPORT = 1, MODE_RESUME = 2 };
-constexpr int WARP = 32;
-constexpr int WPB = 4;                  // games (warps) a block
-constexpr unsigned FULL = 0xffffffffu;
-
-// The first qualifying event of every entity from its base, a warp over
-// one game's grid in shared memory (sg[c * K1 + k]): step_common.cuh's
-// detect with the columns over the lanes.  Every lane returns the same.
-__device__ __forceinline__ void detect_warp(const float* sg, int K1,
-                                            const Consts& K,
-                                            const int (&base)[E], int lane,
-                                            float (&st)[E], int (&sj)[E],
-                                            int (&sc)[E], bool (&sv)[E]) {
-  const int G = K1 - 1;
-  int k0 = K1;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if (base[e] < k0) k0 = base[e];
-    st[e] = INF_T;
-    sj[e] = -1;
-    sc[e] = 0;
-    sv[e] = false;
-  }
-  k0 = k0 > 1 ? k0 : 1;
-  int todo = (1 << E) - 1;
-  for (int c0 = k0; c0 <= G && todo; c0 += WARP) {
-    const int k = c0 + lane;
-    const bool valid = k <= G;
-    const int kk = valid ? k : G;
-    float cu[NC], pv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      cu[c] = sg[c * K1 + kk];
-      pv[c] = sg[c * K1 + kk - 1];
-    }
-    const float tm = ((float)kk - 1.0f) * K.dtcol;
-    float ptc[E][E];
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-#pragma unroll
-      for (int o = i + 1; o < E; ++o) {
-        ptc[i][o] = INF_T;
-        if (((todo >> i) | (todo >> o)) & 1) {
-          const float sig2 = K.sig2[i][o];
-          const float dxk = cu[o * 4 + 0] - cu[i * 4 + 0];
-          const float dyk = cu[o * 4 + 1] - cu[i * 4 + 1];
-          const bool over = dxk * dxk + dyk * dyk <= sig2;
-          const float dxm = pv[o * 4 + 0] - pv[i * 4 + 0];
-          const float dym = pv[o * 4 + 1] - pv[i * 4 + 1];
-          const float dvx = pv[o * 4 + 2] - pv[i * 4 + 2];
-          const float dvy = pv[o * 4 + 3] - pv[i * 4 + 3];
-          const float bb = dxm * dvx + dym * dvy;
-          const float dvv = dvx * dvx + dvy * dvy;
-          const float dpp = dxm * dxm + dym * dym;
-          const float disc = bb * bb - dvv * (dpp - sig2);
-          const bool ok = over && bb < 0.0f && disc >= 0.0f && dvv > 0.0f;
-          const float den = dvv == 0.0f ? 1.0f : dvv;
-          const float tau = clamp0(-(bb + sqrtf(clamp0(disc))) / den);
-          ptc[i][o] = ok ? tm + tau : INF_T;
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (!((todo >> e) & 1)) continue;
-      float best_t = INF_T;
-      int best_m = 0;
-#pragma unroll
-      for (int ax = 0; ax < 2; ++ax) {      // ax 0: y walls, 1: x walls
-        const int comp = ax == 0 ? 1 : 0;
-        const float pk = cu[e * 4 + comp], pm = pv[e * 4 + comp];
-        const float vm = pv[e * 4 + comp + 2];
-        const float bmr = ax == 0 ? K.bmry[e] : K.bmrx[e];
-        const float bound = ax == 0 ? K.halfy : K.halfx;
-        const float toward = vm >= 0.0f ? 1.0f : -1.0f;
-        const bool overlap = toward * pk + K.r[e] >= bound;
-        const float den = vm == 0.0f ? 1.0f : vm;
-        const float tau = clamp0((bmr * toward - pm) / den);
-        const float tc = (overlap && vm != 0.0f) ? tm + tau : INF_T;
-        const int cm = 16 * (vm >= 0.0f ? 2 * ax : 2 * ax + 1);
-        if (ax == 0 || tc < best_t) {
-          best_t = tc;
-          best_m = cm;
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < E; ++o) {
-        if (o == e) continue;
-        const float tc = o < e ? ptc[o][e] : ptc[e][o];
-        if (tc < best_t) {
-          best_t = tc;
-          best_m = 16 * 4 + o + 1;
-        }
-      }
-      const bool hit = valid && kk >= base[e] && best_t < K.dt;
-      const unsigned mask = __ballot_sync(FULL, hit);
-      if (mask != 0u) {
-        const int src = __ffs(mask) - 1;
-        const float bt = __shfl_sync(FULL, best_t, src);
-        const int bm = __shfl_sync(FULL, best_m, src);
-        st[e] = bt;
-        sj[e] = (bm & 15) - 1;
-        sc[e] = bm >> 4;
-        sv[e] = true;
-        todo &= ~(1 << e);
-      }
-    }
-  }
-}
 
 // A game on one warp: the grid in shared memory, sg[c * K1 + k]; in a
 // stochastic populate sg holds the noise plane on entry.
@@ -190,7 +81,8 @@ struct WarpGame {
 __device__ __forceinline__ void detect_stacked(
     const WarpGame& gm, const Consts& K, const int (&base)[E], bool scored,
     float (&st)[E], int (&sj)[E], int (&sc)[E], bool (&sv)[E]) {
-  detect_warp(gm.sg, gm.K1, K, base, gm.lane, st, sj, sc, sv);
+  detect_warp(gm.sg, gm.K1, K, (1 << E) - 1, base, gm.lane, st, sj, sc,
+              sv);
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const bool pv = e == PUCK || (sc[e] == 4 && sj[e] == PUCK);
@@ -592,11 +484,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
   const int cells = NC * K1;
   // the block's grids (resume) or noise planes (stochastic populate) in
   const float* src = mode == MODE_RESUME ? g : noise;
-  if (src != nullptr)
-    for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
-      const int ww = e % nb, ck = e / nb;
-      sgrid[(size_t)ww * cells + ck] = src[(size_t)ck * B + b0 + ww];
-    }
+  if (src != nullptr) planes_in(sgrid, src, B, K1, b0, nb);
   __syncthreads();
   if (w < nb) {
     const WarpGame gm{sgrid + (size_t)w * cells, K1, lane};
@@ -605,10 +493,7 @@ parallel_step_kernel(const Consts K, const float* __restrict__ M6,
   }
   __syncthreads();
   // ... and the grids out
-  for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
-    const int ww = e % nb, ck = e / nb;
-    g[(size_t)ck * B + b0 + ww] = sgrid[(size_t)ww * cells + ck];
-  }
+  planes_out(sgrid, g, B, K1, b0, nb);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 // Device code shared by K1 (csrc/exact_step.cu) and K6
-// (csrc/parallel_step.cu), the two batched control steps: the f32
-// constants, one RK4 step of the damped double integrator, and the
-// first-qualifying-collision detect.  Each is written so that its f32
-// operations, in order, are those of the plain PyTorch versions
+// (csrc/parallel_step.cu), the two batched control steps, each a warp a
+// game with its grid in shared memory: the f32 constants, one RK4 step of
+// the damped double integrator, the first-qualifying-collision detect over
+// the lanes of a warp, and the copy of a block's grids between the plane
+// layout and shared memory.  Each is written so that its f32 operations,
+// in order, are those of the plain PyTorch versions
 // (robogame_tpu_torch/physics/exact_step.py: _rk4, _detect_plain).
 #pragma once
 
@@ -14,7 +16,9 @@ namespace rg_step {
 constexpr int NC = 20;
 constexpr int E = 5;
 constexpr int PUCK = 4;
-constexpr int BLOCK = 32;          // = exact_step.py::BLOCK
+constexpr int WARP = 32;
+constexpr int WPB = 4;             // games (warps) a block
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float INF_T = 1.0e9f;
 
 // f32 constants, in the order of exact_step.py::CONST_FIELDS
@@ -56,38 +60,46 @@ __device__ __forceinline__ void rk4(const float (&x)[4], float ux, float uy,
 
 __device__ __forceinline__ float clamp0(float v) { return v < 0.0f ? 0.0f : v; }
 
-// First qualifying event of each entity e in `want` at columns >=
-// max(base[e], 1); candidates per column: the y wall, the x wall, then
-// partners ascending -- the first strictly smaller time wins, and the
-// first column whose best time is < dt.
-__device__ __forceinline__ void detect(const float* g, int B,
-                                       int K1, int b, const Consts& K,
-                                       int want, const int (&base)[E],
-                                       float (&st)[E], int (&sj)[E],
-                                       int (&sc)[E], bool (&sv)[E]) {
+// The first qualifying event of each entity e in `want` at columns >=
+// max(base[e], 1), a warp over one game's grid in shared memory
+// (sg[c * K1 + k]); the slots of the other entities are left as they are.
+// Candidates per column: the y wall, the x wall, then partners ascending --
+// the first strictly smaller time wins -- and an entity's event is that of
+// its first column whose best time is < dt.  The lanes take the columns, 32
+// at a time from the least base; each lane runs its column's tests, and an
+// entity's first qualifying column is the lowest lane with a hit
+// (__ballot_sync, __ffs), its event broadcast with __shfl_sync.  Every lane
+// returns the same; every f32 operation is the plain version's
+// (exact_step.py::_detect_plain, parallel_step.py's detect).
+__device__ __forceinline__ void detect_warp(const float* sg, int K1,
+                                            const Consts& K, int want,
+                                            const int (&base)[E], int lane,
+                                            float (&st)[E], int (&sj)[E],
+                                            int (&sc)[E], bool (&sv)[E]) {
   const int G = K1 - 1;
   int k0 = K1;
 #pragma unroll
   for (int e = 0; e < E; ++e)
-    if (((want >> e) & 1) && base[e] < k0) k0 = base[e];
-  k0 = k0 > 1 ? k0 : 1;
-#pragma unroll
-  for (int e = 0; e < E; ++e)
     if ((want >> e) & 1) {
+      if (base[e] < k0) k0 = base[e];
       st[e] = INF_T;
       sj[e] = -1;
       sc[e] = 0;
       sv[e] = false;
     }
-  float pv[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) pv[c] = g[((size_t)c * K1 + k0 - 1) * B + b];
+  k0 = k0 > 1 ? k0 : 1;
   int todo = want;
-  for (int k = k0; k <= G && todo; ++k) {
-    float cu[NC];
+  for (int c0 = k0; c0 <= G && todo; c0 += WARP) {
+    const int k = c0 + lane;
+    const bool valid = k <= G;
+    const int kk = valid ? k : G;
+    float cu[NC], pv[NC];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) cu[c] = g[((size_t)c * K1 + k) * B + b];
-    const float tm = ((float)k - 1.0f) * K.dtcol;
+    for (int c = 0; c < NC; ++c) {
+      cu[c] = sg[c * K1 + kk];
+      pv[c] = sg[c * K1 + kk - 1];
+    }
+    const float tm = ((float)kk - 1.0f) * K.dtcol;
     float ptc[E][E];
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -116,7 +128,7 @@ __device__ __forceinline__ void detect(const float* g, int B,
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      if (!((todo >> e) & 1) || k < base[e]) continue;
+      if (!((todo >> e) & 1)) continue;
       float best_t = INF_T;
       int best_m = 0;
 #pragma unroll
@@ -146,29 +158,43 @@ __device__ __forceinline__ void detect(const float* g, int B,
           best_m = 16 * 4 + o + 1;
         }
       }
-      if (best_t < K.dt) {
-        st[e] = best_t;
-        sj[e] = (best_m & 15) - 1;
-        sc[e] = best_m >> 4;
+      const bool hit = valid && kk >= base[e] && best_t < K.dt;
+      const unsigned mask = __ballot_sync(FULL, hit);
+      if (mask != 0u) {
+        const int src = __ffs(mask) - 1;
+        const float bt = __shfl_sync(FULL, best_t, src);
+        const int bm = __shfl_sync(FULL, best_m, src);
+        st[e] = bt;
+        sj[e] = (bm & 15) - 1;
+        sc[e] = bm >> 4;
         sv[e] = true;
         todo &= ~(1 << e);
       }
     }
-#pragma unroll
-    for (int c = 0; c < NC; ++c) pv[c] = cu[c];
   }
 }
 
-// The same, every wanted entity from one base column.
-__device__ __forceinline__ void detect(const float* g, int B,
-                                       int K1, int b, const Consts& K,
-                                       int want, int base, float (&st)[E],
-                                       int (&sj)[E], int (&sc)[E],
-                                       bool (&sv)[E]) {
-  int bases[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) bases[e] = base;
-  detect(g, B, K1, b, K, want, bases, st, sj, sc, sv);
+// A block's nb games from the plane layout [20][G+1][B] of `src` into
+// shared memory (game w's 20 x K1 floats at w NC K1), nb consecutive games a
+// (component, column), and back out of it.
+__device__ __forceinline__ void planes_in(float* smem,
+                                          const float* __restrict__ src,
+                                          int B, int K1, int b0, int nb) {
+  const int cells = NC * K1;
+  for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
+    const int ww = e % nb, ck = e / nb;
+    smem[(size_t)ww * cells + ck] = src[(size_t)ck * B + b0 + ww];
+  }
+}
+
+__device__ __forceinline__ void planes_out(const float* smem,
+                                           float* __restrict__ dst, int B,
+                                           int K1, int b0, int nb) {
+  const int cells = NC * K1;
+  for (int e = threadIdx.x; e < cells * nb; e += blockDim.x) {
+    const int ww = e % nb, ck = e / nb;
+    dst[(size_t)ck * B + b0 + ww] = smem[(size_t)ww * cells + ck];
+  }
 }
 
 }  // namespace rg_step

@@ -16,10 +16,11 @@ source and the flags), and bound with ``ctypes``:
 * K6, ``csrc/parallel_step.cu``: the parallel-resolution control step.
 
 K3 and K4 share their knot-structured SQP machinery (the constraint
-operator applied through the position sensitivities, never as a stored A,
-and the one-sweep Cholesky factor and inverse) in ``csrc/knot_sqp.cuh``;
-K5 keeps its block-Schur ADMM on a general A in ``csrc/joint_schur.cuh``;
-K1 and K6 share their constants, RK4 and detect in
+operator applied through the position sensitivities, never as a stored A)
+in ``csrc/knot_sqp.cuh``, whose one-sweep Cholesky factor and inverse K5
+takes too; K5 keeps its block-Schur ADMM on a general A in
+``csrc/joint_schur.cuh``; K1 and K6, each a warp a game, share their
+constants, RK4, the warp's detect and the plane copies in
 ``csrc/step_common.cuh``.  A library's name hashes its source with the
 headers it includes (``HEADERS``) and its flags.
 
@@ -36,12 +37,14 @@ which may contract a product and a sum into one FMA: K2's grouped route
 to lie no further from the f64 solution than the plain f32 version
 (``profile_qp.py``, ``profile_sqp.py``); K1, K2's per-problem kernel, K5
 and K6 build with ``-fmad=false``, so each f32 operation is the one their
-plain versions do (K1 and K6 are held to theirs bitwise).
+plain versions do (K1 and K6 are held to theirs bitwise; K5 with FMA
+contraction lay further from the f64 solution, ``profile_sqp.py``).
 
 ``occupancy(name, N, n_obs)`` asks K3's or K4's library for the problems
 an SM it runs (one a block; the card's occupancy calculator) and its
-shared bytes a problem; ``qp_grouped_occupancy()`` asks the same of K2's
-grouped iterations (80 problems a block).
+shared bytes a problem, ``qp_joint_occupancy(n1, m_own, m_pair)`` the same
+of K5; ``qp_grouped_occupancy()`` asks the same of K2's grouped
+iterations (80 problems a block).
 
 Launch counters, added to only by the launch paths below: ``launches``
 holds K1's per mode, ``qp_launches`` K2's per-problem launches per (n, m)
@@ -80,7 +83,8 @@ SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
 HEADERS = {"exact_step": [_PKG / "csrc" / "step_common.cuh"],
            "dmpc_sqp": [_PKG / "csrc" / "knot_sqp.cuh"],
            "cmpc_sqp": [_PKG / "csrc" / "knot_sqp.cuh"],
-           "qp_joint": [_PKG / "csrc" / "joint_schur.cuh"],
+           "qp_joint": [_PKG / "csrc" / "joint_schur.cuh",
+                        _PKG / "csrc" / "knot_sqp.cuh"],
            "parallel_step": [_PKG / "csrc" / "step_common.cuh"]}
 BUILD_DIR = _PKG.parent / "build" / "robogame_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -205,6 +209,7 @@ _EXTRA = {
                  + [_P])],
     "qp_grouped": [("rg_qp_grouped_setup", [_P] * 4 + [_I] * 3 + [_F, _P]),
                    ("rg_qp_grouped_occupancy", [_P])],
+    "qp_joint": [("rg_qp_joint_occupancy", [_I] * 3 + [_P])],
 }
 
 
@@ -434,6 +439,18 @@ def qp_grouped_occupancy() -> dict:
         raise RuntimeError(f"qp_grouped occupancy query failed: cudaError "
                            f"{err}")
     return {"blocks_per_sm": out[0], "smem_bytes": out[1]}
+
+
+def qp_joint_occupancy(n1: int, m_own: int, m_pair: int) -> dict:
+    """The problems an SM that K5 runs at (n1, m_own, m_pair) on the
+    current card (one a block), and its shared bytes a problem."""
+    out = (ctypes.c_int * 2)()
+    err = _library("qp_joint").rg_qp_joint_occupancy(
+        int(n1), int(m_own), int(m_pair), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qp_joint occupancy query failed: cudaError "
+                           f"{err}")
+    return {"problems_per_sm": out[0], "smem_bytes": out[1]}
 
 
 def qp_admm(H, g, A, l, u, group: int, n_seg: int, seg_iters: int,

@@ -209,10 +209,11 @@ def solve_qp_grouped_plain(H, g, A, l, u, group: int, iters: int = 50,
 #     K = [[K11, K12], [K12', K22]],  Kpp = Hp + (sigma + rho) I + Ap' Rp Ap,
 #     K12 = P1' Rpair P2 (the pair rows' blocks),
 #
-# as C1 = chol(K11)^-1, W = C1 K12, Cs = chol(K22 - W'W)^-1, and each ADMM
-# iteration solves K x = r in six triangular or full products:
-# t1 = C1 r1, t2 = r2 - W't1, u2 = Cs t2, x2 = Cs'u2, v1 = t1 - W x2,
-# x1 = C1'v1.
+# as C1 = chol(K11)^-1, W = C1 K12, Cs = chol(K22 - W'W)^-1 and B21 =
+# -Cs W'C1, so that L^-1 = [[C1, 0], [B21, Cs]] inverts K's Cholesky factor,
+# and each ADMM iteration solves K x = r as t = L^-1 r, x = L^-T t
+# (:func:`linv_factors`, :func:`linv_solve`).  K4's plain version runs the
+# same segment with the six products of its kernel (:func:`schur_solve`).
 
 # K5's and K4's supported sizes: n1 % 8 == 0 (JAX's own limit), n1 <= 64
 # variables a player and at most 512 constraint rows (2 m_own + m_pair)
@@ -368,21 +369,38 @@ def schur_solve(C1, W, Cs, r):
     return torch.cat([x1, x2], dim=1)
 
 
+def linv_factors(Hb, A, ro, rho_s, sigma_t, m_own: int):
+    """L^-1 = [[C1, 0], [B21, Cs]] (B, 2 n1, 2 n1), L the Cholesky factor
+    of K: the blocks of :func:`schur_factors` and B21 = -Cs W'C1."""
+    C1, W, Cs = schur_factors(Hb, A, ro, rho_s, sigma_t, m_own)
+    B21 = -(Cs @ (W.transpose(-1, -2) @ C1))
+    return (torch.cat([torch.cat([C1, torch.zeros_like(C1)], 2),
+                       torch.cat([B21, Cs], 2)], 1),)
+
+
+def linv_solve(Li, r):
+    """x = K^-1 r = L^-T (L^-1 r) for L^-1 from :func:`linv_factors`."""
+    return _mv(Li.transpose(-1, -2), _mv(Li, r))
+
+
 def joint_segment(c, Hb, g, A, lo, hi, lx, ux, is_eq, iters: int,
-                  m_own: int, sigma_t, alpha_t):
+                  m_own: int, sigma_t, alpha_t, solver):
     """One adaptive-rho segment of the structured ADMM from the carry
     c = (x, zx, z, yx, y, rho_s): factor, ``iters`` iterations, residuals,
     the rho update.  Rows with ``is_eq`` take 1e3 rho (None: no equality
-    rows).  Returns (carry, (prim, dual, p_sc, d_sc))."""
+    rows).  ``solver`` is (factors, solve): K5's (:func:`linv_factors`,
+    :func:`linv_solve`) or K4's (:func:`schur_factors`,
+    :func:`schur_solve`).  Returns (carry, (prim, dual, p_sc, d_sc))."""
     x, zx, z, yx, y, rho_s = c
     r = rho_s[:, None]
     ro = r.expand_as(z) if is_eq is None else torch.where(is_eq, 1e3 * r, r)
     one_m_alpha = 1 - alpha_t
-    C1, W, Cs = schur_factors(Hb, A, ro, rho_s, sigma_t, m_own)
+    factors, solve = solver
+    F = factors(Hb, A, ro, rho_s, sigma_t, m_own)
     for _ in range(iters):
         rhs = sigma_t * x - g + joint_atw(A, ro * z - y, m_own) + \
             (r * zx - yx)
-        x = schur_solve(C1, W, Cs, rhs)
+        x = solve(*F, rhs)
         ax = joint_ax(A, x, m_own)
         zx_t = alpha_t * x + one_m_alpha * zx
         zx_n = torch.minimum(torch.maximum(zx_t + yx / r, lx), ux)
@@ -437,5 +455,6 @@ def joint_plain_stats(Hb, g, Ab, l, u, lx, ux, *, m_own: int, m_pair: int,
     res = None
     for _ in range(n_seg):
         c, res = joint_segment(c, Hb, g, Ab, l, u, lx, ux, l == u,
-                               seg_iters, m_own, sigma_t, alpha_t)
+                               seg_iters, m_own, sigma_t, alpha_t,
+                               (linv_factors, linv_solve))
     return c[0], joint_stats(res, tol)

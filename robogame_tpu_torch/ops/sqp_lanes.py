@@ -324,7 +324,8 @@ def _cmpc_plain_stats(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
                       sqp_rest: int = 5, it_rest: int = 40, rho: float = 1.0,
                       sigma: float = 1e-6, alpha: float = 1.6,
                       tol: float = 1e-3, d2: float = 0.16):
-    from .qp_lanes import joint_ax, joint_rho0, joint_segment, joint_stats
+    from .qp_lanes import joint_ax, joint_rho0, joint_segment, \
+        joint_stats, schur_factors, schur_solve
     if Hb.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("solve_cmpc_sqp_plain needs full-f32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
@@ -389,7 +390,7 @@ def _cmpc_plain_stats(Hb, g, sg, p0, obs, lo_arena, hi_arena, lx, ux, U0, *,
 
     def segment(c, A, lo, hi, iters):
         return joint_segment(c, Hb, g, A, lo, hi, lx, ux, None, iters, m_own,
-                             sigma_t, alpha_t)
+                             sigma_t, alpha_t, (schur_factors, schur_solve))
 
     A, lo, hi, d = relinearize(U0)
     zv = torch.zeros_like(g)

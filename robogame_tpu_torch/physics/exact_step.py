@@ -51,7 +51,7 @@ E = 5
 CARRY_ROWS = 48
 _INF = 1.0e9
 MODES = ("exact", "exact_export", "exact_resume")
-# Games per CUDA block; the two-phase compaction budget is a multiple.
+# The two-phase compaction budget is a multiple of BLOCK games.
 BLOCK = 32
 
 # unordered entity pairs (i < o) in the kernel's order

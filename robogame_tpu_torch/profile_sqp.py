@@ -1,4 +1,5 @@
-"""K3's and K4's time on the card, split by schedule, and their build flags.
+"""K3's, K4's and K5's time on the card, split by schedule, and their build
+flags.
 
     python -m robogame_tpu_torch.profile_sqp
 
@@ -14,12 +15,17 @@ timed on their kernels (CUDA events, after a warm-up):
   segment of 348 iterations: the differences split a launch into its
   factorizations and its iterations.
 
-Then both kernels are built again with ``-fmad=false`` (no FMA
-contraction) and timed on the production schedule beside the build that
-``kernels.FMAD`` selects; for each build the kernel is held against its
-plain version in f32 and f64 (the problems where all three converged that
-lie outside 2e-3 + 1e-2 |x| of the f64 solution), which is what the flag
-table rests on.  Needs a CUDA device.
+K5 is timed on the joint QPs of CMPC's "joint" route (one SQP iteration
+of the same instances: 4,096 QPs of n1 = 40 x 2, m_own = 80 x 2, m_pair =
+20, 150 iterations) and at CMPC's N = 16 (n1 = 32, m_own = 64, m_pair =
+16), with the problems an SM it runs.
+
+Then the kernels are built with FMA contraction and with ``-fmad=false``
+and timed on the production schedule, each beside the other; for each
+build the kernel is held against its plain version in f32 and f64 (the
+problems where all three converged that lie outside 2e-3 + 1e-2 |x| of
+the f64 solution), which is what the flag table ``kernels.FMAD`` rests on.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from . import kernels
 from .config import MpcParams, SimParams
-from .ops import sqp_lanes
+from .ops import qp_lanes, sqp_lanes
 
 SCHEDULES = {"production": {},
              "1 segment x 1 iteration": dict(n_seg0=1, it0=1, sqp_rest=0),
@@ -46,20 +52,20 @@ def _pos(rng, *shape):
                      rng.uniform(-2.2, 2.2, shape)], -1)
 
 
-def _capture(name, fn):
-    """The arguments of the first ``sqp_lanes.<name>`` call fn() makes."""
+def _capture(name, fn, module=sqp_lanes):
+    """The arguments of the first ``module.<name>`` call fn() makes."""
     seen = []
-    route = getattr(sqp_lanes, name)
+    route = getattr(module, name)
 
     def hook(*args, **kw):
         seen.append((args, kw))
         return route(*args, **kw)
 
-    setattr(sqp_lanes, name, hook)
+    setattr(module, name, hook)
     try:
         fn()
     finally:
-        setattr(sqp_lanes, name, route)
+        setattr(module, name, route)
     args, kw = seen[0]
     return tuple(a.float().contiguous() for a in args), kw
 
@@ -94,6 +100,32 @@ def cmpc_inputs(games, dev, seed=0):
     return _capture("cmpc_sqp_stats", lambda: cm.candidates(
         st, f(x1), f(x2), f(f1), f(f2), f(_pos(rng, games, 2)),
         SimParams(), mpc, "fused"))
+
+
+def joint_inputs(games, dev, N=20, seed=0):
+    """K5's inputs (rows scaled, as ``kernels.qp_joint`` takes them) and
+    keyword arguments: the joint QPs of ``games`` random CMPC instances at
+    N knots, one SQP iteration on the "joint" route."""
+    from .control import cmpc as cm
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    state = lambda v: np.concatenate([_pos(rng, games), v], 1)
+    x1 = state(rng.normal(size=(games, 2)))
+    x2 = state(rng.normal(size=(games, 2)))
+    f1 = state(3.0 * rng.normal(size=(games, 2)))
+    f2 = state(np.zeros((games, 2)))
+    mpc = MpcParams(N=N, sqp_iters=1)
+    st = cm.initial_cmpc_state(mpc, device=dev, batch=(games,))
+    args, kw = _capture("joint_qp_stats", lambda: cm.candidates(
+        st, f(x1), f(x2), f(f1), f(f2), f(_pos(rng, games, 2)),
+        SimParams(), mpc, "joint"), qp_lanes)
+    m_own = kw["m_own"]
+    Ab, lo, hi = qp_lanes.joint_row_scale(*args[2:5], m_own)
+    args = tuple(a.contiguous() for a in (args[0], args[1], Ab, lo, hi,
+                                          args[5], args[6]))
+    return args, dict(m_own=m_own, m_pair=kw["m_pair"], n_seg=4,
+                      seg_iters=kw["iters"] // 4, rho=1.0, sigma=1e-6,
+                      alpha=1.6, tol=1e-3)
 
 
 def time_ms(fn, reps=3):
@@ -143,10 +175,20 @@ def main():
         for label, sched in SCHEDULES.items():
             ms = time_ms(lambda: stats(*args, **dict(kw, **sched)))
             print(f"{tag} {label}: {ms:.4f} ms")
+    joints = [("K5", joint_inputs(512, dev)),
+              ("K5 at N=16", joint_inputs(512, dev, N=16))]
+    for tag, (args, kw) in joints:
+        n1 = args[0].shape[-1]
+        occ = kernels.qp_joint_occupancy(n1, kw["m_own"], kw["m_pair"])
+        print(f"{tag} P={args[1].shape[0]} (n1={n1}, m_own={kw['m_own']}, "
+              f"m_pair={kw['m_pair']}): {occ['problems_per_sm']} problems "
+              f"an SM, {occ['smem_bytes']} shared bytes a problem")
     fmad = set(kernels.FMAD)
-    for build, table in (("FMA contraction", fmad), ("-fmad=false", set())):
+    names = ("dmpc_sqp", "cmpc_sqp", "qp_joint")
+    for build, table in (("FMA contraction", fmad | set(names)),
+                         ("-fmad=false", fmad - set(names))):
         kernels.FMAD = table
-        for _, name, *_ in solves:
+        for name in names:
             kernels._libs.pop(name, None)
         for tag, name, stats, plain, (args, kw) in solves:
             ms = time_ms(lambda: stats(*args, **kw))
@@ -155,8 +197,23 @@ def main():
             print(f"{tag} built with {build}: {ms:.4f} ms; outside "
                   f"{X_ATOL}/{X_RTOL} of f64 ({n} all converged): kernel "
                   f"{k}, plain f32 {p}")
+        for tag, (args, kw) in joints:
+            ms = time_ms(lambda: kernels.qp_joint(*args, **kw))
+            k, p, n = off_f64(lambda a: kernels.qp_joint(*a, **kw),
+                              lambda a: qp_lanes.joint_plain_stats(*a, **kw),
+                              args)
+            (xk, _), (x64, _) = (kernels.qp_joint(*args, **kw),
+                                 qp_lanes.joint_plain_stats(
+                                     *(a.double() for a in args), **kw))
+            xp, _ = qp_lanes.joint_plain_stats(*args, **kw)
+            dk, dp = ((x.double() - x64).abs().amax(-1) for x in (xk, xp))
+            print(f"{tag} built with {build}: {ms:.4f} ms; outside "
+                  f"{X_ATOL}/{X_RTOL} of f64 ({n} all converged): kernel "
+                  f"{k}, plain f32 {p}; a problem's max|dx| to f64 mean / "
+                  f"max: kernel {float(dk.mean()):.4g} / "
+                  f"{float(dk.max()):.4g}, plain f32 {float(dp.mean()):.4g}"
+                  f" / {float(dp.max()):.4g}")
     kernels.FMAD = fmad
-
 
 if __name__ == "__main__":
     main()

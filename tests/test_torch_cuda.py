@@ -500,22 +500,33 @@ def test_k4_agrees_with_plain(dev, case):
     _held(xk, sk, xp, sp, min_conv=0.5 if xk.shape[0] > 1 else 0.0)
 
 
-def test_k5_agrees_with_plain(dev):
+@pytest.mark.parametrize("N", [20, 16])     # CMPC's shape, and at N=16
+def test_k5_agrees_with_plain(dev, N):
+    """K5 against its plain version, and no further from the plain version
+    in f64 than the plain f32 version (problems outside 2e-3 + 1e-2 |x|
+    where all three converged: at most twice as many, plus 0.1%)."""
     from robogame_tpu_torch import kernels
     from robogame_tpu_torch.ops import qp_lanes
     torch.backends.cuda.matmul.allow_tf32 = False
-    cm, mpc, inp = _cmpc_candidates(dev, 128, 20, seed=1)
+    cm, mpc, inp = _cmpc_candidates(dev, 128, N, seed=1)
     one = mpc.replace(sqp_iters=1)
     args, kw = _capture(qp_lanes, "joint_qp_stats", lambda: cm.candidates(
         *inp, rt.SimParams(), one, "joint"))
-    key = (40, 80, 20)
+    key = (2 * N, 4 * N, N)
     before = kernels.joint_launches.get(key, 0)
     xk, sk = qp_lanes.joint_qp_stats(*args, **kw)
     assert kernels.joint_launches[key] == before + 1
     p = qp_lanes.solve_qp_lanes_joint_plain(*args, **kw)
     sp = torch.stack([p.converged.float(), p.prim_res, p.dual_res], 1)
+    p64 = qp_lanes.solve_qp_lanes_joint_plain(*(a.double() for a in args),
+                                              **kw)
     torch.cuda.synchronize()
     _held(xk, sk, p.x, sp)
+    all3 = (sk[:, 0] > 0.5) & p.converged & p64.converged
+    off = [int((all3 & ((x.double() - p64.x).abs() >
+                        2e-3 + 1e-2 * p64.x.abs()).any(-1)).sum())
+           for x in (xk, p.x)]
+    assert off[0] <= 2 * off[1] + int(all3.sum()) // 1000
 
 
 def test_k4_first_iteration_agrees_with_k5(dev):
@@ -632,6 +643,32 @@ def test_k6_resume_odd_batch_at_the_cap_with_noise(dev):
     for a, b in zip(kr[:3], qr[:3]):
         assert torch.equal(a, b)
     assert float(kr[1][4].max()) == 49          # some games at the cap
+
+
+def test_k1_resume_odd_batch_at_the_cap_with_noise(dev):
+    """B=253 corner grinders (not a multiple of the 4 games a block): a
+    stochastic K1 export at cap 1 and the resume from its grid and carry,
+    games reaching the event cap, bitwise equal to the plain version."""
+    from robogame_tpu_torch import kernels
+    B = 253
+    s, u = _corner_states(dev, B, 27)
+    p = P1.replace(stochastic=True, noise=1.0)
+    planes = ex._to_planes(s)
+    up = ex._u_plane(u, B)
+    npl, rpl, _ = ex._noise_planes(s, p)
+    T = ex._tabs(p, dev)
+    k = kernels.exact_step(T.M6, T.consts, planes[0], up, planes[1],
+                           planes[2], npl, rpl, None, None, "exact_export", 1)
+    q = _plain(p, dev, planes, up, "exact_export", 1, npl, rpl)
+    for a, b in zip(k, q):
+        assert torch.equal(a, b)
+    kr = kernels.exact_step(T.M6, T.consts, planes[0], up, planes[1],
+                            planes[2], None, rpl, k[2], k[3], "exact_resume",
+                            48)
+    qr = _plain(p, dev, planes, up, "exact_resume", 48, None, rpl, q[2], q[3])
+    for a, b in zip(kr[:3], qr[:3]):
+        assert torch.equal(a, b)
+    assert float(kr[1][4].max()) == 48          # some games at the cap
 
 
 def test_k6_twophase_equals_one_phase_in_the_kernel(dev):
