@@ -110,6 +110,26 @@ Phases, each failing loudly (nothing here catches an error):
    main path, each printed, with the resume's warps an SM) beside its
    bound and the plain time.
 
+9. slice 9's main path, the event engine (``engine="event"``, the
+   default; plain PyTorch, no kernel of its own): (a) the nine golden
+   scenarios of the compiled reference (tests/golden/) in f64 through
+   ``scripted_rollout``, one batch per params, cut at 400 steps: scores
+   equal at every step, positions within 1e-9 over the first 100 steps,
+   within tests/test_parity.py's FULL_RUN_TOL to the cut, damage and the
+   final vector where that bound is below 1e-3, the decided game frozen;
+   (b) bench.py's workload at B=8192 (f32, winning_score=4) for 20 steps
+   through ``monte_carlo(log=True)``, timed after a warm-up, beside
+   phase 2's K1 rate, its records (T, B) equal to a step-by-step replay,
+   the loop iterations a step; (c) at each of those 20 states one event
+   step against one mode-exact K1 step: scores equal, x within 5e-3 and
+   damage within 2e-3 (1 + |d|), any game-step outside re-run in f64 on
+   the event engine and allowed only as a knife edge (f32 and f64 part
+   there), at most 0.1% of the game-steps; (d) ``GameSim(float64)`` on
+   the card with ``log=True`` over kick_goal_10s, its log against the
+   golden log, and the writer that ran; (e) the stochastic event engine
+   (B=2048, noise=0.8, 4 steps, f64): the players' variance within 20%
+   of the discrete analytic covariance.
+
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6; K1's and
 K6's ``ms`` and ``launches`` per control step, with ``export_ms`` and
@@ -1817,6 +1837,290 @@ def pallas_phase(rt, dev, card, u_uni, k1_rate):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the event engine, GameSim, the rollouts and the game logs
+# ---------------------------------------------------------------------------
+
+GOLD_STEPS = 400                   # the golden runs on the card, cut there
+GOLD_EARLY = 100                   # the 1e-9 window (tests/test_parity.py)
+# full-run position tolerance per scenario (tests/test_parity.py:36-46)
+FULL_RUN_TOL = {
+    "zeros_20s": 1e-12, "swirl_20s": 1e-12, "winning_score_1": 1e-12,
+    "bouncy_tau1_20s": 1e-4, "kick_goal_10s": 2.0, "random_100s": math.inf,
+    "goals_random_60s": math.inf, "heavy_puck_20s": math.inf,
+    "slow_players_20s": 1e-10}
+B_EVENT, EVENT_STEPS = 8192, 20    # the event engine at bench width
+# one event step against one K1 step from common states
+# (tests/test_pallas_exact.py:86-104), and the share of game-steps that
+# may lie outside as knife edges
+EV_X_TOL, EV_DMG_TOL, KNIFE_SHARE = 5e-3, 2e-3, 1e-3
+B_EV_NOISE, EV_NOISE_STEPS, EV_NOISE_W = 2048, 4, 0.8
+
+
+def _golden(name):
+    import os
+    from robogame_tpu_torch.utils.gamelog import read_log
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden", name)
+    with open(base + ".json") as f:
+        meta = json.load(f)
+    sched = np.loadtxt(base + ".sched.txt").reshape(-1, 4, 2)
+    final = np.fromfile(base + ".log.final", dtype="<f8")
+    return meta, sched, read_log(base + ".log"), final
+
+
+def _golden_params(rt, meta):
+    return rt.SimParams(
+        dt=meta["dt"], winning_score=meta.get("winning_score", 100),
+        tau_puck=meta.get("tau_puck", 0.1),
+        tau_player=meta.get("tau_player", 0.5),
+        player_mass=meta.get("player_mass", 1.0),
+        puck_mass=meta.get("puck_mass", 0.5), dtype="float64")
+
+
+def golden_runs(rt, dev, card):
+    """(a) The nine goldens in f64 through ``scripted_rollout``, one batch
+    per params, each scenario cut at GOLD_STEPS."""
+    import os
+    from robogame_tpu_torch.utils.gamelog import damage_log_fields
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden")
+    names = sorted(f[:-5] for f in os.listdir(gdir) if f.endswith(".json"))
+    groups = {}
+    for name in names:
+        groups.setdefault(_golden_params(rt, _golden(name)[0]),
+                          []).append(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for params, group in groups.items():
+        gold = [_golden(n) for n in group]
+        ends = [min(g[0]["n_steps"], GOLD_STEPS) for g in gold]
+        T = max(ends)
+        u = np.zeros((T, len(group), 4, 2))
+        for i, g in enumerate(gold):
+            u[:min(len(g[1]), T), i] = g[1][:T]
+        u = torch.from_numpy(u).to(dev)
+        s = rt.initial_state(params, x0_puck=np.array(
+            [g[0]["x0"] for g in gold], np.float64), device=dev)
+        parts, at_end, done = [], {}, 0
+        for end in sorted(set(ends)):
+            s, recs = rt.scripted_rollout(s, u[done:end], params, device=dev)
+            parts.append(recs)
+            at_end[end] = s
+            done = end
+        recs = rt.LogRecord(*(torch.cat(f).cpu() for f in zip(*parts)))
+        for i, (name, (meta, _, ref, final)) in enumerate(zip(group, gold)):
+            n = min(ends[i], ref.shape[0])
+            pos = recs.positions[:n, i].reshape(n, 10).numpy()
+            check(np.array_equal(recs.score[:n, i].numpy(), ref[:n, 1:3]),
+                  f"(9a) {name}: scores differ from the golden")
+            early = float(np.abs(pos[:GOLD_EARLY]
+                                 - ref[:min(n, GOLD_EARLY), 3:13]).max())
+            err = float(np.abs(pos - ref[:n, 3:13]).max())
+            check(early < 1e-9, f"(9a) {name}: early window {early}")
+            check(err < FULL_RUN_TOL[name], f"(9a) {name}: run error {err}")
+            extra = ""
+            if FULL_RUN_TOL[name] < 1e-3:
+                derr = float(np.abs(damage_log_fields(
+                    recs.damage[:n, i].numpy()) - ref[:n, 13:29]).max())
+                check(derr < 1e-3, f"(9a) {name}: damage {derr}")
+                extra = f", damage {derr:.3g}"
+                if ends[i] == meta["n_steps"]:
+                    vec = rt.to_vector(at_end[ends[i]])[i].cpu().numpy()
+                    verr = float(np.abs(vec - final).max())
+                    check(verr < 1e-3, f"(9a) {name}: final vector {verr}")
+                    extra += f", final vector {verr:.3g}"
+            if n < ends[i]:       # decided: the game freezes
+                frozen = recs.positions[n - 1:ends[i], i]
+                check(bool((frozen == frozen[0]).all()),
+                      f"(9a) {name}: the decided game moved")
+                extra += f", frozen over steps {n}-{ends[i]}"
+            print(f"phase9 (a) {name}: {n} logged steps of {ends[i]}, scores "
+                  f"equal, first {min(n, GOLD_EARLY)} max|dpos| {early:.3g}, "
+                  f"all {err:.3g}{extra}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase9 (a) nine goldens in f64 on the card, {len(groups)} "
+          f"batches, cut at {GOLD_STEPS} steps: {wall:.3f} s wall  [{card}]",
+          flush=True)
+
+
+def event_phase(rt, dev, card, u_uni, k1_rate):
+    """Phase 9: the event engine (``engine="event"``, plain PyTorch) on
+    the card: (a) the goldens, (b) the bench width through
+    ``monte_carlo(log=True)``, timed, its records against a replay, (c)
+    each replayed step against one K1 step from the same state, (d)
+    ``GameSim`` and its log against the golden, (e) the stochastic
+    variance."""
+    import os
+    import tempfile
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics.step import step_event
+    from robogame_tpu_torch.physics.sweep import _substep_affine_np
+    from robogame_tpu_torch.utils.gamelog import read_log
+    mc_mod = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
+
+    golden_runs(rt, dev, card)
+
+    # ---- (b) the bench width through monte_carlo(log=True) --------------
+    pe = rt.SimParams(engine="event", winning_score=4)
+    mc = rt.McParams(num_runs=B_EVENT, T=EVENT_STEPS * pe.dt,
+                     randomize_x0=True)
+
+    def schedule(ps_, states):
+        k, u_base = ps_
+        return (k + 1, u_base), u_base[k // HOLD]
+
+    warm, _ = rt.monte_carlo(pe, rt.McParams(num_runs=B_EVENT, T=2 * pe.dt,
+                                             randomize_x0=True),
+                             policy=schedule, policy_state=(0, u_uni),
+                             log=True, device=dev)
+    _ = warm.scores.cpu()
+    kernels.reset_launches()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    ev0.record()
+    res, recs = rt.monte_carlo(pe, mc, policy=schedule,
+                               policy_state=(0, u_uni), log=True, device=dev)
+    ev1.record()
+    scores = res.scores.cpu()
+    wall = time.perf_counter() - t0
+    dev_ms = ev0.elapsed_time(ev1)
+    # the event engine is plain PyTorch: no kernel of K1-K6 runs on it
+    n_kernel = (sum(kernels.launches.values())
+                + sum(kernels.parallel_launches.values()))
+    check(n_kernel == 0, f"(9b) the event engine launched {n_kernel} "
+          f"K1 / K6 kernels")
+    rate = B_EVENT * EVENT_STEPS / wall
+    check(recs.positions.shape == (EVENT_STEPS, B_EVENT, 5, 2)
+          and bool(torch.isfinite(recs.positions).all())
+          and bool(torch.isfinite(res.damage).all()),
+          "(9b) records malformed")
+    print(f"phase9 (b) engine=event: B={B_EVENT} x {EVENT_STEPS} steps in "
+          f"{wall:.3f} s wall ({dev_ms:.1f} ms between CUDA events): "
+          f"{rate:.1f} control-steps/s; engine=pallas_exact (phase 2): "
+          f"{k1_rate:.1f} control-steps/s; event / K1 {rate / k1_rate:.6f};"
+          f" K1 / K6 launches 0  [{card}]", flush=True)
+    # the replay, step by step, keeping each step's start state
+    s = mc_mod._initial_states(pe, mc, device=dev)
+    states, iters = [s], []
+    for k in range(EVENT_STEPS):
+        s, it = step_event(s, u_uni[k // HOLD], pe)
+        states.append(s)
+        iters.append(it)
+        rec = rt.log_record(s)
+        check(all(torch.equal(a[k], b) for a, b in zip(recs, rec)),
+              f"(9b) step {k}: records differ from the replay")
+    check(torch.equal(s.score.cpu(), scores), "(9b) final scores differ")
+    it = torch.stack(iters).double()
+    per_step_max = it.max(dim=1).values
+    print(f"phase9 (b) records (T, B) == the step-by-step replay; loop "
+          f"iterations a step: max {int(it.max())} (per step "
+          f"{per_step_max.long().tolist()}), mean over games "
+          f"{float(it.mean()):.4f}; aggregate "
+          f"{json.dumps(rt.aggregate(res))}", flush=True)
+
+    # ---- (c) each step against one K1 step from the same state ---------
+    p1 = rt.SimParams(engine="pallas_exact", two_phase=False,
+                      winning_score=4)
+    p64 = pe.replace(dtype="float64")
+    kernels.reset_launches()
+    outside, knife, worst = 0, 0, (0.0, 0.0, -1, -1)
+    for k in range(EVENT_STEPS):
+        s0, s_ev, u = states[k], states[k + 1], u_uni[k // HOLD]
+        s_k1 = rt.step_batch(s0, u, p1, device=dev)
+        check(torch.equal(s_ev.score, s_k1.score),
+              f"(9c) step {k}: scores differ between the event engine and "
+              f"K1")
+        dx = (s_ev.x - s_k1.x).abs().amax(dim=(1, 2))
+        ddm = ((s_ev.damage - s_k1.damage).abs()
+               - EV_DMG_TOL * (1.0 + s_k1.damage.abs())).amax(dim=(1, 2))
+        bad = (dx > EV_X_TOL) | (ddm > 0)
+        worst = max(worst, (float(dx.max()), float(ddm.max()), k,
+                            int(dx.argmax())))
+        if bool(bad.any()):
+            idx = bad.nonzero()[:, 0]
+            sub = rt.GameState(*(a[idx] for a in s0))
+            sub64 = sub._replace(x=sub.x.double(),
+                                 damage=sub.damage.double(),
+                                 t=sub.t.double())
+            e64, _ = step_event(sub64, u[idx].double(), p64)
+            split = (((e64.x - s_ev.x[idx].double()).abs().amax(dim=(1, 2))
+                      > EV_X_TOL)
+                     | ((e64.damage - s_ev.damage[idx].double()).abs()
+                        > EV_DMG_TOL * (1.0 + e64.damage.abs())).flatten(
+                         1).any(dim=1))
+            outside += len(idx)
+            knife += int(split.sum())
+            check(bool(split.all()),
+                  f"(9c) step {k}: {int((~split).sum())} games part from K1 "
+                  f"where f32 and f64 agree (not a knife edge)")
+    n_gs = B_EVENT * EVENT_STEPS
+    print(f"phase9 (c) {EVENT_STEPS} steps x {B_EVENT} games, one event step "
+          f"vs one K1 step (mode exact, {dict(kernels.launches)['exact']} "
+          f"launches) from common states: scores equal; outside x "
+          f"{EV_X_TOL} / damage {EV_DMG_TOL}: {outside} game-steps, "
+          f"{knife} of them knife edges (the f32 and f64 event steps part "
+          f"there); worst max|dx| "
+          f"{worst[0]:.3g}, damage excess {worst[1]:.3g} (step {worst[2]}, "
+          f"game {worst[3]})", flush=True)
+    check(knife <= KNIFE_SHARE * n_gs,
+          f"(9c) {knife} knife edges of {n_gs} game-steps")
+
+    # ---- (d) GameSim on the card and its log -------------------------------
+    meta, sched, ref, _ = _golden("kick_goal_10s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kick_goal_10s.log")
+        sim = rt.GameSim(rt.SimParams(dtype="float64"), device=dev)
+        sim.reset(x0_ball=meta["x0"], log=True, logname=path)
+        writer = sim.log_writer
+        t0 = time.perf_counter()
+        for u in sched[:meta["n_steps"]]:
+            vec = sim.run(*u)
+        wall_d = time.perf_counter() - t0
+        sim.close()
+        got = read_log(path)
+    check(got.shape == ref.shape and np.isfinite(vec).all(),
+          f"(9d) log shape {got.shape}, golden {ref.shape}")
+    check(np.array_equal(got[:, 1:3], ref[:, 1:3]),
+          "(9d) GameSim's log scores differ from the golden")
+    early = float(np.abs(got[:GOLD_EARLY] - ref[:GOLD_EARLY]).max())
+    full = float(np.abs(got[:, 3:13] - ref[:, 3:13]).max())
+    check(early < 1e-9, f"(9d) first {GOLD_EARLY} rows: {early}")
+    check(full < FULL_RUN_TOL["kick_goal_10s"], f"(9d) positions {full}")
+    print(f"phase9 (d) GameSim(float64) on the card, kick_goal_10s: "
+          f"{meta['n_steps']} run calls in {wall_d:.3f} s, writer {writer}; "
+          f"log == golden: scores equal, first {GOLD_EARLY} rows max|d| "
+          f"{early:.3g}, positions {full:.3g}  [{card}]", flush=True)
+
+    # ---- (e) the stochastic event engine ---------------------------------
+    pn = rt.SimParams(engine="event", dtype="float64", stochastic=True,
+                      noise=EV_NOISE_W)
+    sn = rt.initial_state(pn, seed=list(range(1, B_EV_NOISE + 1)),
+                          device=dev)
+    u0 = torch.zeros((B_EV_NOISE, 4, 2), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(EV_NOISE_STEPS):
+        sn = rt.step_batch(sn, u0, pn, device=dev)
+    xs = sn.x[:, :4].cpu().numpy()
+    wall_e = time.perf_counter() - t0
+    F, _, L = _substep_affine_np(pn)
+    V = np.zeros((4, 4))
+    Fp = np.eye(4)
+    for _ in range(EV_NOISE_STEPS * pn.grid_points):
+        V = V + Fp @ (L @ L.T) @ Fp.T
+        Fp = F[0] @ Fp
+    V = EV_NOISE_W ** 2 * V
+    rels = []
+    for c in (2, 3, 0, 1):
+        var_m = float(xs[:, :, c].var(axis=0).mean())
+        rels.append(abs(var_m - V[c, c]) / V[c, c])
+    print(f"phase9 (e) stochastic event engine: B={B_EV_NOISE} x "
+          f"{EV_NOISE_STEPS} steps, noise={EV_NOISE_W}, f64, in {wall_e:.3f} "
+          f"s; variance vs the discrete analytic (vx, vy, px, py): "
+          f"{', '.join(f'{r:.4f}' for r in rels)}  [{card}]", flush=True)
+    check(max(rels) < 0.2, f"(9e) variance off the analytic value: {rels}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2083,6 +2387,7 @@ def main() -> int:
     k3 = dmpc_phase(rt, dev, card)
     k45 = cmpc_phase(rt, dev, card)
     k6 = pallas_phase(rt, dev, card, u_uni, rate)
+    event_phase(rt, dev, card, u_uni, rate)
     print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

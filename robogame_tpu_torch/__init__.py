@@ -8,9 +8,17 @@ the rest),
 every DMPC candidate's whole SQP on a third (``csrc/dmpc_sqp.cu``, K3),
 and every CMPC candidate's joint SQP on a fourth (``csrc/cmpc_sqp.cu``,
 K4), with the structured joint QP of the CMPC "joint" route on a fifth
-(``csrc/qp_joint.cu``, K5).
+(``csrc/qp_joint.cu``, K5).  The default engine, ``engine="event"``,
+runs the reference's event-ordered physics as plain PyTorch, under
+``GameSim`` (the reference's reset / run surface), the rollouts and the
+binary game logs.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels.
+
+    from robogame_tpu_torch import GameSim
+    sim = GameSim()
+    sim.reset(x0_ball=[-1.0, 0.0, 0.0, 0.0], log=True)
+    vec = sim.run([1.0, 0.0], [0.0, 0.0], [0.0, 0.0], [0.0, 0.0])
 
     from robogame_tpu_torch import McParams, SimParams, monte_carlo
     res = monte_carlo(SimParams(engine="pallas_exact"), McParams(8192))
@@ -57,27 +65,32 @@ from .ops.sqp_lanes import (solve_cmpc_sqp_lanes, solve_cmpc_sqp_plain,
                             solve_dmpc_sqp_lanes, solve_dmpc_sqp_plain)
 from .parallel.monte_carlo import McParams, McResult, aggregate, monte_carlo
 from .physics.parallel_step import parallel_step_plain
-from .physics.step import step_batch
+from .physics.rollout import (LogRecord, batch_rollout, log_record, rollout,
+                              scripted_rollout)
+from .physics.step import step, step_batch
 from .physics.sweep import step_sweep
+from .sim import GameSim
 from .state import (GameState, SimStateView, from_numpy, from_vector,
                     initial_state, to_numpy, to_vector, undecided)
 
 __all__ = [
-    "BaselineCentralizedPlayers", "CbfParams", "CbfResult", "CentralizedTeam",
-    "ClassicalTeam", "CmpcState", "DMPCPlayer", "DMPCTeam", "DmpcState",
-    "DmpcTeamState", "GameState", "McParams", "McResult", "MpcParams",
-    "PlayerState", "QpSolution", "SimParams", "SimStateView", "StrategyParams",
-    "TeamState", "Trajectory", "aggregate", "classical_matchup",
-    "cmpc_matchup", "cmpc_state_from_numpy", "cmpc_state_to_numpy",
-    "compute_control", "compute_control_batch", "dmpc_matchup",
-    "dmpc_state_from_numpy", "dmpc_state_to_numpy", "from_numpy",
-    "from_vector", "initial_cmpc_state", "initial_state", "initial_team_state",
-    "min_time_traj", "min_time_traj_batch", "monte_carlo",
-    "parallel_step_plain", "resolve_device",
-    "safe_control", "safe_control_batch", "solve_cmpc_sqp_lanes",
-    "solve_cmpc_sqp_plain", "solve_dmpc_sqp_lanes", "solve_dmpc_sqp_plain",
-    "solve_qp", "solve_qp_lanes", "solve_qp_lanes_joint",
-    "solve_qp_lanes_joint_plain", "step_batch", "step_sweep", "team_policy",
-    "team_policy_batch", "team_state_from_numpy", "team_state_to_numpy",
-    "to_numpy", "to_vector", "undecided",
+    "BaselineCentralizedPlayers", "CbfParams", "CbfResult",
+    "CentralizedTeam", "ClassicalTeam", "CmpcState", "DMPCPlayer",
+    "DMPCTeam", "DmpcState", "DmpcTeamState", "GameSim", "GameState",
+    "LogRecord", "McParams", "McResult", "MpcParams", "PlayerState",
+    "QpSolution", "SimParams", "SimStateView", "StrategyParams",
+    "TeamState", "Trajectory", "aggregate", "batch_rollout",
+    "classical_matchup", "cmpc_matchup", "cmpc_state_from_numpy",
+    "cmpc_state_to_numpy", "compute_control", "compute_control_batch",
+    "dmpc_matchup", "dmpc_state_from_numpy", "dmpc_state_to_numpy",
+    "from_numpy", "from_vector", "initial_cmpc_state", "initial_state",
+    "initial_team_state", "log_record", "min_time_traj",
+    "min_time_traj_batch", "monte_carlo", "parallel_step_plain",
+    "resolve_device", "rollout", "safe_control", "safe_control_batch",
+    "scripted_rollout", "solve_cmpc_sqp_lanes", "solve_cmpc_sqp_plain",
+    "solve_dmpc_sqp_lanes", "solve_dmpc_sqp_plain", "solve_qp",
+    "solve_qp_lanes", "solve_qp_lanes_joint", "solve_qp_lanes_joint_plain",
+    "step", "step_batch", "step_sweep", "team_policy", "team_policy_batch",
+    "team_state_from_numpy", "team_state_to_numpy", "to_numpy",
+    "to_vector", "undecided",
 ]

@@ -3,10 +3,11 @@
 Field for field the same as the JAX package's ``config.py`` so that a
 configuration carries across unchanged; only ``jdtype`` becomes
 :attr:`SimParams.torch_dtype`.  ``engine`` keeps its string values; the
-port's step implements ``"pallas_exact"`` (the event-order-exact step, run
+port's step implements ``"event"`` (the reference's event engine, plain
+PyTorch; the default), ``"pallas_exact"`` (the event-order-exact step, run
 by the hand-written CUDA kernel in ``csrc/exact_step.cu``), ``"pallas"``
 (the parallel-resolution step, ``csrc/parallel_step.cu``) and ``"sweep"``
-(plain PyTorch), and raises ``NotImplementedError`` for ``"event"``.
+(plain PyTorch).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (:func:`resolve_device`); without a card they raise instead of silently
@@ -73,7 +74,8 @@ class SimParams:
     dtype: str = "float32"
     stochastic: bool = False
     # "event" | "sweep" | "pallas" | "pallas_exact"; the port's step runs
-    # "pallas_exact" (event-order-exact: one globally-earliest event per
+    # "event" (the reference's event loop, plain PyTorch), "pallas_exact"
+    # (event-order-exact on K1: one globally-earliest event per
     # game per loop iteration, sequential feedback re-propagation), "pallas"
     # (parallel resolution: every conflict component's earliest event per
     # iteration, feedback-free re-propagation) and "sweep" (the same

@@ -3,8 +3,8 @@
 All games of a sweep step in lockstep as one batch: a host loop over
 control steps, each step one :func:`..physics.step.step_batch` (on the
 card, K1 for ``engine="pallas_exact"``, K6 for ``engine="pallas"``; the
-sweep engine is plain PyTorch).  Sharding over several cards and per-step
-logs are not ported yet.
+event and sweep engines are plain PyTorch), with a log record a step on
+request.  Sharding over several cards is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import SimParams, resolve_device
+from ..physics.rollout import log_record, stack_records
 from ..physics.step import step_batch
 from ..state import GameState, initial_state
 
@@ -63,39 +64,47 @@ def _initial_states(params: SimParams, mc: McParams,
 
 
 def _run_batch(states: GameState, params: SimParams, n_steps: int,
-               policy: Callable | None, policy_state=None, device="cuda"):
+               policy: Callable | None, policy_state=None, device="cuda",
+               log: bool = False):
     """``n_steps`` control steps; ``policy`` is an optional
-    ``(policy_state, states) -> (policy_state, controls (B, 4, 2))``."""
+    ``(policy_state, states) -> (policy_state, controls (B, 4, 2))``.
+    Returns (states, policy state), and with ``log`` the LogRecord of
+    every step stacked (T, B, ...) as well."""
     dev = resolve_device(device)
     B = states.score.shape[0]
     s, ps = states, policy_state
     zero = torch.zeros((B, 4, 2), dtype=params.torch_dtype, device=dev)
+    recs = []
     for _ in range(n_steps):
         if policy is None:
             u = zero
         else:
             ps, u = policy(ps, s)
         s = step_batch(s, u, params, device=dev)
+        if log:
+            recs.append(log_record(s))
+    if log:
+        return s, ps, stack_records(recs)
     return s, ps
 
 
 def monte_carlo(params: SimParams, mc: McParams,
                 policy: Callable | None = None, policy_state=None,
                 mesh=None, log: bool = False, write_config: bool = False,
-                device="cuda") -> McResult:
+                device="cuda"):
     """Run the full sweep of ``mc.num_runs`` games for ceil(T/dt) control
-    steps on ``device``."""
+    steps on ``device``.  Returns the :class:`McResult`, and with ``log``
+    ``(result, records)``: the LogRecord of every step, (T, B, ...)."""
     if mesh is not None:
         raise NotImplementedError("sharded sweeps are not ported yet")
-    if log:
-        raise NotImplementedError("per-step logs are not ported yet")
     n_steps = int(np.ceil(mc.T / params.dt))
     states = _initial_states(params, mc, device=device)
-    final, _ = _run_batch(states, params, n_steps, policy, policy_state,
-                          device=device)
+    final, _, *recs = _run_batch(states, params, n_steps, policy,
+                                 policy_state, device=device, log=log)
     if write_config:
         write_configuration(params, mc)
-    return McResult(scores=final.score, damage=final.damage, t_final=final.t)
+    res = McResult(scores=final.score, damage=final.damage, t_final=final.t)
+    return (res, recs[0]) if log else res
 
 
 def write_configuration(params: SimParams, mc: McParams) -> None:

@@ -1,10 +1,14 @@
-"""Physics of the port: dynamics, sub-step tables and noise, the sweep
-engine, the event-order-exact step (K1) and the parallel-resolution step
-(K6)."""
+"""Physics of the port: dynamics, sub-step tables and noise, the event
+engine, the sweep engine, the event-order-exact step (K1), the
+parallel-resolution step (K6), and the rollouts."""
 
 from .dynamics import rk4_step
 from .parallel_step import parallel_step_plain
-from .step import step_batch
+from .rollout import (LogRecord, batch_rollout, log_record, rollout,
+                      scripted_rollout)
+from .step import step, step_batch
 from .sweep import step_sweep
 
-__all__ = ["parallel_step_plain", "rk4_step", "step_batch", "step_sweep"]
+__all__ = ["LogRecord", "batch_rollout", "log_record", "parallel_step_plain",
+           "rk4_step", "rollout", "scripted_rollout", "step", "step_batch",
+           "step_sweep"]

@@ -6,7 +6,8 @@
   (:mod:`.parallel_step`, ``csrc/parallel_step.cu``);
 * ``"sweep"``: the sweep engine (:func:`.sweep.step_sweep`), plain
   PyTorch in the params' dtype;
-* ``"event"``: not ported yet.
+* ``"event"``: the event engine (:func:`.engine._update_sim`), plain
+  PyTorch in the params' dtype, the reference's semantics.
 
 The kernel engines run one- or two-phase (``SimParams.two_phase``); on CPU
 tensors their plain PyTorch versions run instead of the kernels.
@@ -17,9 +18,10 @@ from __future__ import annotations
 import torch
 
 from ..config import SimParams, resolve_device
-from ..state import GameState
+from ..state import GameState, undecided
 from . import exact_step as ex
 from . import parallel_step as ps
+from .engine import _update_sim
 from .sweep import game_draws, populate_noise, step_sweep
 
 
@@ -38,12 +40,10 @@ def step_batch(states: GameState, controls: torch.Tensor,
     at winning_score) keep their state.  Stochastic steps draw each game's
     noise from its own key and advance it."""
     dev = resolve_device(device)
-    if params.engine == "event":
-        raise NotImplementedError(
-            "engine 'event' is not ported yet; the port's step runs "
-            "'pallas_exact', 'pallas' and 'sweep'")
     _check_device(states.x, dev, "states")
     _check_device(controls, dev, "controls")
+    if params.engine == "event":
+        return step_event(states, controls, params)[0]
     if params.engine == "sweep":
         return step_sweep(states, controls, params)
     B = states.score.shape[0]
@@ -69,3 +69,36 @@ def step_batch(states: GameState, controls: torch.Tensor,
         else:
             out = ps._kernel_call(planes, u, params, npl, mode="full")
     return ex._from_planes(out, states, new_keys, params)
+
+
+def step_event(states: GameState, controls: torch.Tensor,
+               params: SimParams):
+    """One event-engine step of every game on the states' device, and each
+    game's loop iterations (B,).  A decided game keeps its whole state,
+    its key included."""
+    new, iters = _update_sim(states, controls, params)
+    keep = undecided(states, params)
+    sel = lambda n, o: torch.where(keep.view(-1, *([1] * (n.ndim - 1))), n,
+                                   o)
+    return GameState(*(sel(n, o) for n, o in zip(new, states))), iters
+
+
+def batch_of_one(state: GameState) -> GameState:
+    """One unbatched game's state (x (5, 4), score (2,), damage (4, 4), t
+    (), key (2,)) as a batch of one."""
+    return GameState(*(a[None] for a in state))
+
+
+def unbatch(state: GameState) -> GameState:
+    """The first game of a batch, unbatched."""
+    return GameState(*(a[0] for a in state))
+
+
+def step(state: GameState, controls, params: SimParams,
+         device="cuda") -> GameState:
+    """One control step of one unbatched game, controls (4, 2); any
+    engine, run as a batch of one on ``device``."""
+    dev = resolve_device(device)
+    u = torch.as_tensor(controls, dtype=params.torch_dtype,
+                        device=dev).reshape(1, 4, 2)
+    return unbatch(step_batch(batch_of_one(state), u, params, device=dev))

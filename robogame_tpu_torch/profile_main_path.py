@@ -1,7 +1,7 @@
 """Where a main path's time goes on the card.
 
     python -m robogame_tpu_torch.profile_main_path \
-        [--path bench|classical_cbf|dmpc|cmpc|pallas]
+        [--path bench|classical_cbf|dmpc|cmpc|pallas|event|event_golden]
 
 ``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
 schedules held 10 steps, winning_score=4, two-phase exact step) for 200
@@ -21,6 +21,12 @@ more traced.
 ``pallas`` (slice 5): the bench workload on the parallel-resolution step
 (``engine="pallas"``, two-phase on K6) for 200 control steps, then 40
 more traced.
+
+``event`` (slice 9): the bench workload on the event engine
+(``engine="event"``, plain PyTorch) for 10 control steps, then 10 more
+traced.  ``event_golden``: one game in f64 on the golden kick_goal_10s
+schedule (tests/golden/), whose players grind along the walls, for 135
+control steps, then 2 more traced (49 loop iterations each).
 
 Each traces with ``torch.profiler`` and prints the wall time per step, the
 device time per kernel name, the device's busy share of the traced wall
@@ -57,11 +63,11 @@ GROUPS = (("K1 exact_step", "exact_step_kernel"),
           ("K6 parallel_step", "parallel_step"))
 
 
-def _bench(rt, mc, dev, engine="pallas_exact"):
+def _bench(rt, mc, dev, engine="pallas_exact", warm=200, steps=STEPS):
     p = rt.SimParams(engine=engine, winning_score=4, two_phase=True,
                      phase1_iters=1, compact_frac=16)
     g = torch.Generator().manual_seed(0)
-    n_rows = (200 + STEPS) // HOLD + 1
+    n_rows = (warm + steps) // HOLD + 1
     u = (torch.rand((n_rows, B, 4, 2), generator=g) * 16.0 - 8.0).to(dev)
 
     def schedule(ps, states):
@@ -70,8 +76,8 @@ def _bench(rt, mc, dev, engine="pallas_exact"):
 
     s = mc._initial_states(p, rt.McParams(num_runs=B, randomize_x0=True),
                            device=dev)
-    s, ps = mc._run_batch(s, p, 200, schedule, (0, u), device=dev)
-    return p, schedule, s, ps, B, 200, STEPS
+    s, ps = mc._run_batch(s, p, warm, schedule, (0, u), device=dev)
+    return p, schedule, s, ps, B, warm, steps
 
 
 def _classical_cbf(rt, mc, dev):
@@ -110,8 +116,31 @@ def _pallas(rt, mc, dev):
     return _bench(rt, mc, dev, engine="pallas")
 
 
+def _event(rt, mc, dev):
+    return _bench(rt, mc, dev, engine="event", warm=10, steps=10)
+
+
+def _event_golden(rt, mc, dev):
+    import os
+
+    import numpy as np
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests", "golden", "kick_goal_10s")
+    sched = torch.from_numpy(np.loadtxt(base + ".sched.txt").reshape(
+        -1, 1, 4, 2)).to(dev)
+    p = rt.SimParams(dtype="float64", winning_score=100)
+
+    def schedule(k, states):
+        return k + 1, sched[k]
+
+    s = rt.initial_state(p, x0_puck=[-1.0, 0.0, 0.0, 0.0], device=dev)
+    s, k = mc._run_batch(s, p, 135, schedule, 0, device=dev)
+    return p, schedule, s, k, 1, 135, 2
+
+
 PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc,
-         "cmpc": _cmpc, "pallas": _pallas}
+         "cmpc": _cmpc, "pallas": _pallas, "event": _event,
+         "event_golden": _event_golden}
 
 
 def main(argv=None) -> None:
@@ -146,7 +175,8 @@ def main(argv=None) -> None:
     busy_us = sum(r[0] for r in rows)
     print(f"card: {card}")
     print(f"path {args.path}: B={n_games}, steps {warm}..{warm + steps}: "
-          f"{wall / steps * 1e3:.4f} ms wall per step (traced)")
+          f"{wall / steps * 1e3:.4f} ms wall per step (traced), "
+          f"{sum(r[2] for r in rows) / steps:.1f} device launches a step")
     if not rows:
         print("device time: not measured (the trace holds no device events)")
         return

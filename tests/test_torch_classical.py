@@ -18,6 +18,7 @@ number of such games is printed and bounded.  The CBF output agrees to
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,8 +70,11 @@ def _near_tie_games(x, field):
     return ((c[1] - c[0]) <= NEAR_TIE).reshape(B, 5).any(axis=1)
 
 
+_j_initial_states = jax.jit(jmc._initial_states, static_argnums=(0, 1))
+
+
 def _common_states(B):
-    js = jmc._initial_states(JP, jmc.McParams(
+    js = _j_initial_states(JP, jmc.McParams(
         num_runs=B, randomize_x0=True, x0_pos_range=(1.0, 0.5),
         x0_vel_range=2.0))
     return rt.from_numpy(np.asarray(js.x), np.asarray(js.score),

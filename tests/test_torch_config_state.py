@@ -175,5 +175,10 @@ def test_entry_points_raise_without_a_card():
         rt.monte_carlo(p, rt.McParams(num_runs=2, T=0.1))
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.initial_state(p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.step_batch(s, u, p.replace(engine="event"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.GameSim()
     with pytest.raises(NotImplementedError):
-        rt.step_batch(s, u, p.replace(engine="event"), device="cpu")
+        rt.monte_carlo(p, rt.McParams(num_runs=2, T=0.1), mesh=object(),
+                       device="cpu")

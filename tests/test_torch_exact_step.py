@@ -36,7 +36,9 @@ def _inference_mode():
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
 
-JP = JParams(dtype="float32", engine="pallas_exact")
+# JAX's one-phase step: the same states as its two-phase one (JAX's tests
+# hold the two equal bitwise), without the second kernel call
+JP = JParams(dtype="float32", engine="pallas_exact", two_phase=False)
 TP = rt.SimParams(dtype="float32", engine="pallas_exact")
 
 

@@ -37,8 +37,10 @@ def test_golden_kick_goal_scores_match_jax():
         meta = json.load(f)
     sched = np.loadtxt(os.path.join(GOLDEN, f"{name}.sched.txt"))
     sched = sched.reshape(-1, 1, 4, 2).astype(np.float32)
+    # JAX's one-phase step: the same states as its two-phase one (JAX's
+    # tests hold the two equal bitwise), without the second kernel call
     jp = JParams(dt=meta["dt"], winning_score=100, dtype="float32",
-                 engine="pallas_exact")
+                 engine="pallas_exact", two_phase=False)
     tp = rt.SimParams(dt=meta["dt"], winning_score=100, dtype="float32",
                       engine="pallas_exact")
     sj = jax.jit(jax.vmap(lambda k: j_initial_state(jp, x0_puck=meta["x0"],

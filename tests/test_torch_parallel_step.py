@@ -272,14 +272,15 @@ def test_monte_carlo_pallas_matches_sweep():
 
 
 def test_dispatch_and_device():
-    """engine 'event' is not ported; the default device is the card, so
-    without one the step raises rather than running on the CPU; on CPU
-    tensors engine 'pallas' runs the plain version (no K6 launch)."""
+    """Engine 'event' runs on CPU tensors; the default device is the
+    card, so without one the step raises rather than running on the CPU;
+    on CPU tensors engine 'pallas' runs the plain version (no K6
+    launch)."""
     from robogame_tpu_torch import kernels
     s = rt.initial_state(TP, seed=[1, 2], device="cpu")
     u = torch.zeros((2, 4, 2))
-    with pytest.raises(NotImplementedError):
-        rt.step_batch(s, u, TP.replace(engine="event"), device="cpu")
+    ev = rt.step_batch(s, u, TP.replace(engine="event"), device="cpu")
+    assert ev.x.device.type == "cpu" and bool(torch.isfinite(ev.x).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             rt.step_batch(s, u, TP)
