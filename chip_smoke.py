@@ -8,7 +8,8 @@ Phases, each failing loudly (nothing here catches an error):
 0. the card's name and power limit (nvidia-smi), then the builds of the
    hand-written CUDA kernels K1 (csrc/exact_step.cu), K2 (csrc/qp_grouped.cu
    and csrc/qp_admm.cu), K3 (csrc/dmpc_sqp.cu), K4 (csrc/cmpc_sqp.cu), K5
-   (csrc/qp_joint.cu) and K6 (csrc/parallel_step.cu) from this checkout,
+   (csrc/qp_joint.cu), K6 (csrc/parallel_step.cu) and the draw kernel
+   (csrc/game_noise.cu) from this checkout,
    one nvcc each, started together, with ptxas's report (registers,
    spills, shared memory) of K2's grouped kernels and K3's and K4's;
 1. K1 against its plain PyTorch version on the card, from common states,
@@ -128,10 +129,40 @@ Phases, each failing loudly (nothing here catches an error):
    the card with ``log=True`` over kick_goal_10s, its log against the
    golden log, and the writer that ran; (e) the stochastic event engine
    (B=2048, noise=0.8, 4 steps, f64): the players' variance within 20%
-   of the discrete analytic covariance.
+   of the discrete analytic covariance, its draws on the draw kernel
+   (substreams 2 and 3).
+
+10. the per-game noise draws on the card (csrc/game_noise.cu, the
+    stream of physics/noise.py): (a) the kernel against its plain version
+    for every substream in f32 and f64 at B=8192: the Philox words
+    bitwise, the normals within 1 ulp (f32) and 4 ulp (f64); (b) three
+    games' draws in a batch of 8192 equal to those in a batch of 3; (c)
+    ``game_draws``, K1's noise planes and the event engine's draws under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync; (d) the
+    kernel's time for one stochastic K1 step's draws at B=2048 (on the
+    device back to back, and a call as a step issues it) beside its bytes
+    bound, its plain version and ``torch.randn`` of the same count (one
+    stream, not the same function); (e) the stochastic rows (B=2048 x
+    400 steps through ``monte_carlo``): engine="pallas" (8 (d)) and
+    "pallas_exact", each beside its deterministic row, with their draw
+    launches (one a step a substream), the velocity std at zero input
+    after 8 steps on "pallas_exact" within 6% of the analytic value, and
+    K1 on device-drawn planes bitwise equal to its plain version; the
+    event engine stochastic beside deterministic (B=2048, 10 steps from
+    Monte-Carlo starts), one substream-3 launch a loop iteration;
+
+11. the single-game classical skills (``ClassicalPlayer``): (a) the bank
+    shot of tests/test_bounce_e2e.py through ``GameSim`` on the card
+    (engine="sweep", f64, tau_puck=1, winning_score=1, the puck at
+    (-1, 0)), both walls: a goal within 120 steps and the puck past
+    |y| = 1.5; (b) each of the seven skills from three fixed states on the
+    card against the port on the CPU (the min-time skills, on K2, within
+    2e-3 + 1e-2 |u|; the others, f64 solve_qp, within 1e-6); (c) the time
+    of a skill call on the card.
 
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
-K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6; K1's and
+K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6, the draw
+kernel; K1's and
 K6's ``ms`` and ``launches`` per control step, with ``export_ms`` and
 ``resume_ms`` beside them); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -184,6 +215,25 @@ def cuda_ms(fn, reps=1):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps, out
+
+
+def device_ms(fn, reps=50):
+    """Mean device time of ``fn`` over ``reps`` calls run back to back:
+    the host queues them behind a sleeping kernel, so that the launches'
+    host overhead (a ctypes call, allocations) does not show.  CUDA
+    events; the queue must fill within the sleep (reps x a call's host
+    time well under 25 ms)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
 
 
 def maxdiff(a, b):
@@ -2098,11 +2148,17 @@ def event_phase(rt, dev, card, u_uni, k1_rate):
     sn = rt.initial_state(pn, seed=list(range(1, B_EV_NOISE + 1)),
                           device=dev)
     u0 = torch.zeros((B_EV_NOISE, 4, 2), dtype=torch.float64, device=dev)
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for _ in range(EV_NOISE_STEPS):
         sn = rt.step_batch(sn, u0, pn, device=dev)
     xs = sn.x[:, :4].cpu().numpy()
     wall_e = time.perf_counter() - t0
+    drawn = dict(kernels.noise_launches)
+    # no game collides here (players at rest, the puck still): the
+    # populate draws, no loop iteration does (phase 10 (e) runs those)
+    check(drawn[2] == EV_NOISE_STEPS and drawn[0] == drawn[1] == 0,
+          f"(9e) the event engine's draw launches {drawn}")
     F, _, L = _substep_affine_np(pn)
     V = np.zeros((4, 4))
     Fp = np.eye(4)
@@ -2117,8 +2173,399 @@ def event_phase(rt, dev, card, u_uni, k1_rate):
     print(f"phase9 (e) stochastic event engine: B={B_EV_NOISE} x "
           f"{EV_NOISE_STEPS} steps, noise={EV_NOISE_W}, f64, in {wall_e:.3f} "
           f"s; variance vs the discrete analytic (vx, vy, px, py): "
-          f"{', '.join(f'{r:.4f}' for r in rels)}  [{card}]", flush=True)
+          f"{', '.join(f'{r:.4f}' for r in rels)}; draw launches (substreams "
+          f"2 and 3) {drawn[2]}, {drawn[3]}  [{card}]", flush=True)
     check(max(rels) < 0.2, f"(9e) variance off the analytic value: {rels}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the per-game noise draws on the card (csrc/game_noise.cu)
+# ---------------------------------------------------------------------------
+
+B_DRAW = 8192                      # the draws held against the plain version
+EV_DRAW_STEPS = 10                 # stochastic event steps with collisions
+# the card's and the host's log and sin/cos may part in the last bits
+DRAW_ULPS = {torch.float32: 1.0, torch.float64: 4.0}
+
+
+def _draw_sizes(G):
+    """(substream, iteration, normals a game) of each draw at G columns."""
+    return ((0, 0, G * 16), (1, 0, (G + 1) * 16), (2, 0, G * 32),
+            (3, 7, 32 + G * 32))
+
+
+def _stochastic_row(rt, kernels, params, B, u_uni, dev):
+    """``monte_carlo`` over B games x N_STEPS of bench.py's schedules on
+    ``params``, timed after a warm-up: (wall seconds, the draw kernel's,
+    K1's and K6's launches in the timed run, the result)."""
+    def schedule(ps_, states):
+        k, u_base = ps_
+        return (k + 1, u_base), u_base[k // HOLD]
+
+    u = u_uni[:, :B]
+    warm = rt.monte_carlo(params, rt.McParams(num_runs=B, T=1.0,
+                                              randomize_x0=True),
+                          policy=schedule, policy_state=(0, u), device=dev)
+    _ = warm.scores.cpu()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = rt.monte_carlo(params, rt.McParams(num_runs=B, T=20.0,
+                                             randomize_x0=True),
+                         policy=schedule, policy_state=(0, u), device=dev)
+    _ = res.scores.cpu()
+    wall = time.perf_counter() - t0
+    counts = (dict(kernels.noise_launches), dict(kernels.launches),
+              dict(kernels.parallel_launches))
+    check(bool(torch.isfinite(res.damage).all()) and res.scores.shape ==
+          (B, 2), "(10e) stochastic row malformed")
+    return wall, counts, res
+
+
+def _velocity_std(rt, params, B, dev, n_v=8):
+    """The players' velocity std after n_v zero-input steps from rest,
+    and its analytic value (the discrete covariance of the sub-steps)."""
+    from robogame_tpu_torch.physics.sweep import _substep_affine_np
+    sv = rt.initial_state(params, seed=list(range(1, B + 1)), device=dev)
+    u0 = torch.zeros((B, 4, 2), device=dev)
+    for _ in range(n_v):
+        sv = rt.step_batch(sv, u0, params, device=dev)
+    F, _, L = _substep_affine_np(params)
+    C = (params.noise ** 2) * (L @ L.T)
+    V = np.zeros((4, 4))
+    for _ in range(n_v * params.grid_points):
+        V = F[0] @ V @ F[0].T + C
+    return float(sv.x[:, :4, 2:4].std()), math.sqrt(V[2, 2])
+
+
+def draw_phase(rt, dev, card, u_uni):
+    """Phase 10: (a) the draw kernel against its plain version on the card
+    for every substream in f32 and f64 (words bitwise, normals within
+    DRAW_ULPS); (b) a game's draws in a batch of B_DRAW and in a batch of
+    3; (c) every engine's draw functions under
+    ``torch.cuda.set_sync_debug_mode("error")``; (d) the kernel's time per
+    draw beside its bytes bound and ``torch.randn`` of the same count;
+    (e) the stochastic rows: engine="pallas" (8 (d)) re-timed beside the
+    deterministic row at the same B, and a stochastic "pallas_exact" row,
+    its velocity std and K1 on device-drawn planes against its plain
+    version.  Returns the draw kernel's kernels entry."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics import engine as eng
+    from robogame_tpu_torch.physics import exact_step as ex
+    from robogame_tpu_torch.physics import noise
+    from robogame_tpu_torch.physics.sweep import game_draws
+    mc_mod = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
+    G = rt.SimParams().grid_points
+    g = torch.Generator().manual_seed(10)
+    keys = torch.stack([torch.randint(-2 ** 62, 2 ** 62, (B_DRAW,),
+                                      generator=g),
+                        torch.randint(0, 2 ** 33, (B_DRAW,), generator=g)],
+                       dim=1).to(dev)
+
+    # ---- (a) the kernel against its plain version, every substream ------
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        per = noise.per_block(dtype)
+        for s, it, n in _draw_sizes(G):
+            nb = -(-n // per)
+            words = kernels.game_words(keys, nb, s, it)
+            check(torch.equal(words, noise.block_words(keys, nb, s, it)),
+                  f"(10a) substream {s} {dtype}: words differ")
+            z = noise.game_normals(keys, n, s, it, dtype)
+            ref = noise.game_normals_plain(keys, n, s, it, dtype)
+            u = noise.ulps(z, ref)
+            worst[(s, str(dtype))] = u
+            check(u <= DRAW_ULPS[dtype] and bool(torch.isfinite(z).all()),
+                  f"(10a) substream {s} {dtype}: {u} ulp from the plain "
+                  f"version")
+    print(f"phase10 (a) draw kernel vs plain on the card, B={B_DRAW}: words "
+          f"bitwise in every substream; normals' ulps (f32 <= 1, f64 <= 4): "
+          f"{ {f'{s}/{d[6:]}': v for (s, d), v in worst.items()} }",
+          flush=True)
+    max_err = max(float((noise.game_normals(keys, n, s, it) -
+                         noise.game_normals_plain(keys, n, s, it)).abs()
+                        .max()) for s, it, n in _draw_sizes(G))
+
+    # ---- (b) a game's draws do not depend on its batch --------------------
+    pick = torch.tensor([0, B_DRAW // 2 + 1, B_DRAW - 1], device=dev)
+    for dtype in (torch.float32, torch.float64):
+        for s, it, n in _draw_sizes(G):
+            a = noise.game_normals(keys, n, s, it, dtype)[pick]
+            b = noise.game_normals(keys[pick].contiguous(), n, s, it, dtype)
+            check(torch.equal(a, b), f"(10b) substream {s} {dtype}: a game's "
+                  f"draws depend on its batch")
+    print(f"phase10 (b) three games' draws in a batch of {B_DRAW} == in a "
+          f"batch of 3, every substream, f32 and f64", flush=True)
+
+    # ---- (c) no host sync on any draw path ----------------------------------
+    pe = rt.SimParams(engine="event", stochastic=True, noise=0.8)
+    s = rt.initial_state(pe, seed=list(range(B_STOCH)), device=dev)
+    active = torch.arange(B_STOCH, device=dev) % 3 == 0
+    p1s = rt.SimParams(engine="pallas_exact", stochastic=True, noise=1.0)
+    ex._noise_planes(s, p1s)           # the noise tables, cached on the card
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (xp, xr), keys2 = game_draws(s, (G, G + 1))
+        npl, rpl, _ = ex._noise_planes(s, p1s)
+        pop = eng._populate_draws(s.key, pe)
+        rn, pn, sn = eng._iteration_draws(s.key, active, 3, pe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n_sync = dict(kernels.noise_launches)
+    check(n_sync == {0: 2, 1: 2, 2: 1, 3: 1}, f"(10c) launches {n_sync}")
+    check(torch.equal(keys2[:, 1], s.key[:, 1] + 1) and xp.shape ==
+          (B_STOCH, G, 4, 4) and sn.shape == (B_STOCH, G, 4, 5, 2) and
+          not bool(rn[~active].any()), "(10c) draws malformed")
+    print(f"phase10 (c) game_draws, K1's noise planes and the event engine's "
+          f"draws under set_sync_debug_mode('error'): no host sync; draw "
+          f"launches {n_sync}", flush=True)
+
+    # ---- (d) the kernel's time per draw ------------------------------------
+    ks = keys[:B_STOCH].contiguous()
+    n0, n1 = G * 16, (G + 1) * 16
+    draw = lambda: (noise.game_normals(ks, n0, 0),
+                    noise.game_normals(ks, n1, 1))
+    for _ in range(3):
+        draw()
+    k_ms, _ = device_ms(draw)            # the two kernels back to back
+    call_ms, _ = cuda_ms(draw, reps=50)  # as a step issues them
+    pl_ms, _ = cuda_ms(lambda: (noise.game_normals_plain(ks, n0, 0),
+                                noise.game_normals_plain(ks, n1, 1)), reps=3)
+    rand = lambda: torch.randn((B_STOCH, n0 + n1), device=dev)
+    randn_ms, _ = device_ms(rand)
+    nbytes = B_STOCH * (16 + 4 * (n0 + n1))
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"phase10 (d) one stochastic K1 step's draws (substreams 0 and 1, "
+          f"B={B_STOCH}, {n0 + n1} f32 normals a game, two launches): "
+          f"{k_ms:.5f} ms on the device back to back ({call_ms:.5f} ms a "
+          f"call as a step issues it, launch overhead included); bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes); plain {pl_ms:.3f} ms; "
+          f"torch.randn of the same count (one stream, not the same "
+          f"function) {randn_ms:.5f} ms  [{card}]", flush=True)
+
+    # ---- (e) the stochastic rows --------------------------------------------
+    base = dict(winning_score=4, two_phase=True, phase1_iters=1,
+                compact_frac=16)
+    rows = {}
+    for tag, prm in (
+            ("pallas stochastic", rt.SimParams(engine="pallas", **base,
+                                               stochastic=True, noise=1.0)),
+            ("pallas deterministic", rt.SimParams(engine="pallas", **base)),
+            ("pallas_exact stochastic", rt.SimParams(
+                engine="pallas_exact", **base, stochastic=True, noise=1.0)),
+            ("pallas_exact deterministic", rt.SimParams(
+                engine="pallas_exact", **base))):
+        wall, (nl, l1, l6), _ = _stochastic_row(rt, kernels, prm, B_STOCH,
+                                                u_uni, dev)
+        rows[tag] = (B_STOCH * N_STEPS / wall, nl)
+        print(f"phase10 (e) {tag} row: B={B_STOCH} x {N_STEPS} steps in "
+              f"{wall:.3f} s wall: {rows[tag][0]:.1f} control-steps/s; draw "
+              f"launches {nl}, K1 {l1}, K6 {l6}  [{card}]", flush=True)
+        if prm.stochastic:
+            want = {0: N_STEPS, 1: N_STEPS if prm.engine == "pallas_exact"
+                    else 0, 2: 0, 3: 0}
+            check(nl == want, f"(10e) {tag}: draw launches {nl}, want {want}")
+        else:
+            check(sum(nl.values()) == 0, f"(10e) {tag}: drew {nl}")
+    for eng_name in ("pallas", "pallas_exact"):
+        ratio = rows[f"{eng_name} deterministic"][0] / \
+            rows[f"{eng_name} stochastic"][0]
+        print(f"phase10 (e) {eng_name}: deterministic / stochastic rate "
+              f"{ratio:.3f}", flush=True)
+    launches = sum(sum(rows[t][1].values()) for t in rows)
+    # the event engine's stochastic loop iterations: B_STOCH Monte-Carlo
+    # starts under bench.py's schedules, EV_DRAW_STEPS steps, stochastic
+    # beside deterministic; one substream-3 launch a loop iteration
+    from robogame_tpu_torch.physics.step import step_event
+    for tag, prm in (("stochastic", rt.SimParams(stochastic=True,
+                                                 noise=1.0)),
+                     ("deterministic", rt.SimParams())):
+        se = mc_mod._initial_states(prm, rt.McParams(
+            num_runs=B_STOCH, randomize_x0=True), dev)
+        kernels.reset_launches()
+        loops = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(EV_DRAW_STEPS):
+            se, iters = step_event(se, u_uni[k // HOLD, :B_STOCH], prm)
+            loops += int(iters.max())
+        wall = time.perf_counter() - t0
+        nl = dict(kernels.noise_launches)
+        want = ({0: 0, 1: 0, 2: EV_DRAW_STEPS, 3: loops} if prm.stochastic
+                else {0: 0, 1: 0, 2: 0, 3: 0})
+        check(nl == want and bool(torch.isfinite(se.x).all()),
+              f"(10e) event {tag}: draw launches {nl}, want {want}")
+        check(loops > 0, "(10e) no event loop iteration ran")
+        print(f"phase10 (e) event {tag}: B={B_STOCH} x {EV_DRAW_STEPS} "
+              f"steps in {wall:.3f} s ({B_STOCH * EV_DRAW_STEPS / wall:.1f} "
+              f"control-steps/s), {loops} loop iterations; draw launches "
+              f"{nl}  [{card}]", flush=True)
+        launches += sum(nl.values())
+    pv = rt.SimParams(engine="pallas_exact", two_phase=False,
+                      stochastic=True, noise=0.8)
+    v_std, sig_v = _velocity_std(rt, pv, B_STOCH, dev)
+    rel = abs(v_std - sig_v) / sig_v
+    print(f"phase10 (e) pallas_exact velocity std at zero input after 8 "
+          f"steps {v_std:.5f} vs analytic {sig_v:.5f} ({rel:.4f})",
+          flush=True)
+    check(rel < 0.06, f"(10e) velocity std off the analytic value by {rel}")
+    # K1 on the device-drawn planes against its plain version, bitwise
+    P1 = rt.SimParams(engine="pallas_exact", two_phase=False,
+                      stochastic=True, noise=1.0)
+    sk = mc_mod._initial_states(P1, rt.McParams(num_runs=B_STOCH,
+                                                randomize_x0=True), dev)
+    for k in range(20):
+        sk = rt.step_batch(sk, u_uni[k // HOLD, :B_STOCH], P1, device=dev)
+    npl, rpl, _ = ex._noise_planes(sk, P1)
+    planes = ex._to_planes(sk)
+    up = ex._u_plane(u_uni[2, :B_STOCH], B_STOCH)
+    T = ex._tabs(P1, dev)
+    kk = ex._kernel_call(planes, up, P1, npl, mode="exact", rnoise_plane=rpl)
+    pp = ex.exact_step_plain(T, planes[0], up, planes[1], planes[2], npl, rpl,
+                             None, None, "exact", 49)
+    pp = (pp[0], pp[1][0:8], pp[1][8:24])
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(kk, pp)),
+          "(10e) K1 differs from its plain version on device-drawn planes")
+    print(f"phase10 (e) K1 mode exact on device-drawn planes, B={B_STOCH} "
+          f"step 20: bitwise equal to its plain version", flush=True)
+    return {
+        "name": "game_normals (a stochastic K1 step's draws: substreams 0 "
+                "and 1)",
+        "route": "cuda",
+        "source": "robogame_tpu_torch/csrc/game_noise.cu",
+        "replaces": "robogame_tpu/physics/pallas_step.py:1433",
+        "replaces_note": "no Pallas kernel: JAX's XLA threefry draws "
+                         "(_noise_plane :1433, _rnoise_plane :1453)",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "call_ms": call_ms,
+        "plain_ms": pl_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "randn_ms": randn_ms,
+        "randn_note": "torch.randn of the same count: one stream, not the "
+                      "same function",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the single-game classical skills and their planners
+# ---------------------------------------------------------------------------
+
+def _skill_vector(puck, players):
+    return np.concatenate([[0.0, 0.0], puck, *players])
+
+
+# three fixed game states (tests/test_torch_skills.py) and the player that
+# plans in each: (field, team, player_id)
+SKILL_STATES = [
+    _skill_vector([1.0, 0.5, 0.0, 0.0], [[-2.5, 1.25, 0, 0],
+                                         [-2.5, -1.25, 0, 0],
+                                         [2.5, 1.25, 0, 0],
+                                         [2.5, -1.25, 0, 0]]),
+    _skill_vector([-1.5, -0.8, 0.5, 0.2], [[-3.0, 0.5, 0.4, -0.2],
+                                           [-1.0, -1.5, 1.0, 0.5],
+                                           [1.5, 0.8, -0.5, 0.0],
+                                           [0.5, -1.0, 0.0, 0.3]]),
+    _skill_vector([2.0, 1.0, -1.0, 0.0], [[-2.0, 0.0, 0.0, 0.0],
+                                          [0.5, 1.5, -0.5, -0.5],
+                                          [3.0, 0.5, 0.0, 0.0],
+                                          [1.0, -0.5, 0.2, 0.0]]),
+]
+SKILL_WHO = [(-1, "A", 2), (-1, "A", 1), (1, "B", 2)]
+# the skills planned in f64 on both devices (solve_qp, cuSOLVER against
+# LAPACK), and the min-time ones (K2 on the card against its plain f32
+# version on the CPU: X_ATOL / X_RTOL)
+SKILL_F64_ATOL = 1e-6
+SKILLS = {
+    "timed_kick": (lambda pl, v: pl.timed_kick(v, 4.0, 1.0), False),
+    "timed_kick_avoiding_obs": (
+        lambda pl, v: pl.timed_kick_avoiding_obs(v, 4.0, 1.0), False),
+    "simple_kick": (lambda pl, v: pl.simple_kick(v, 4.0), True),
+    "simple_kick_avoiding_obs": (
+        lambda pl, v: pl.simple_kick_avoiding_obs(v, 4.0), False),
+    "bounce_kick": (lambda pl, v: pl.bounce_kick(v, "up"), False),
+    "defend_kick": (lambda pl, v: pl.defend_kick(v, 4.0), True),
+    "defend": (lambda pl, v: pl.defend(v), True),
+}
+
+
+def skills_phase(rt, dev, card):
+    """Phase 11: (a) the bank shot of tests/test_bounce_e2e.py through
+    ``GameSim`` on the card, both walls; (b) each skill from the three
+    states on the card against the port on the CPU; (c) the time a skill
+    call takes on the card."""
+    from robogame_tpu_torch import kernels
+    # ---- (a) the bank shot ------------------------------------------------
+    for wall in ("up", "down"):
+        params = rt.SimParams(dt=0.05, winning_score=1, tau_puck=1.0,
+                              engine="sweep", dtype="float64")
+        sim = rt.GameSim(params, device=dev)
+        vec = sim.reset(dt=0.05, winning_score=1, tau_puck=1.0,
+                        x0_ball=[-1.0, 0.0, 0.0, 0.0])
+        player = rt.ClassicalPlayer(params, -1, "A", 2, device=dev)
+        t0 = time.perf_counter()
+        check(player.bounce_kick(rt.SimStateView(vec), wall),
+              f"(11a) no bank shot planned off the {wall} wall")
+        plan_s = time.perf_counter() - t0
+        z = np.zeros(2)
+        ys = []
+        for k in range(120):
+            u, _ = player.get_control()
+            vec = sim.run(z, u, z, z)
+            ys.append(float(vec[3]))
+            if vec[0] >= 1:
+                break
+        sgn = 1.0 if wall == "up" else -1.0
+        reach = max(sgn * y for y in ys)
+        check(vec[0] >= 1, f"(11a) no goal within 120 steps ({wall})")
+        check(reach > 1.5, f"(11a) the puck never neared the {wall} wall")
+        print(f"phase11 (a) bank shot off the {wall} wall through GameSim "
+              f"on the card: planned in {plan_s:.3f} s, goal at step "
+              f"{k + 1}, puck reached {reach:.3f} on the wall's side  "
+              f"[{card}]", flush=True)
+
+    # ---- (b) and (c): the seven skills, card against CPU -----------------
+    for skill, (plan, min_time) in SKILLS.items():
+        kw = dict(tau_puck=1.0) if skill == "bounce_kick" else {}
+        tp = rt.SimParams(dtype="float64", **kw)
+        worst, times, planned = 0.0, [], 0
+        kernels.reset_launches()
+        for vec, (field, team, pid) in zip(SKILL_STATES, SKILL_WHO):
+            a = rt.ClassicalPlayer(tp, field, team, pid, device=dev)
+            b = rt.ClassicalPlayer(tp, field, team, pid, device="cpu")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok_a = plan(a, rt.SimStateView(vec))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            ok_b = plan(b, rt.SimStateView(vec))
+            planned += ok_a
+            check(ok_a == ok_b and int(a.state.length) == int(
+                b.state.length), f"(11b) {skill}: flag or length differs "
+                f"between the card and the CPU")
+            ua, ub = a.state.u_traj.cpu(), b.state.u_traj
+            d = (ua - ub).abs()
+            lim = (X_ATOL + X_RTOL * ub.abs() if min_time else
+                   torch.full_like(ub, SKILL_F64_ATOL))
+            worst = max(worst, float(d.max()))
+            check(bool((d <= lim).all()), f"(11b) {skill}: controls differ "
+                  f"by {float(d.max())} between the card and the CPU")
+        k2 = sum(kernels.qp_launches.values())
+        check(planned >= 2, f"(11b) {skill} planned in {planned} of 3 states")
+        check(k2 > 0 if min_time else True,
+              f"(11b) {skill}: no K2 launch on the card")
+        tol = (f"{X_ATOL} + {X_RTOL} |u|" if min_time else
+               f"{SKILL_F64_ATOL}")
+        print(f"phase11 (b) {skill}: card == CPU from 3 states ({planned} "
+              f"planned; max|du| {worst:.3g}, tolerance {tol}; K2 launches "
+              f"{k2}); (c) {1e3 * sum(times) / len(times):.1f} ms a call on "
+              f"the card  [{card}]", flush=True)
 
 
 def main() -> int:
@@ -2143,7 +2590,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase0 build K1-K6: {build_s:.2f} s (nvcc seconds "
+    print(f"phase0 build K1-K6 and the draw kernel: {build_s:.2f} s (nvcc "
+          f"seconds "
           f"{kernels.build_seconds})  [{card}]", flush=True)
     for name, tag in (("qp_grouped", "K2 grouped"), ("dmpc_sqp", "K3"),
                       ("cmpc_sqp", "K4")):
@@ -2388,7 +2836,9 @@ def main() -> int:
     k45 = cmpc_phase(rt, dev, card)
     k6 = pallas_phase(rt, dev, card, u_uni, rate)
     event_phase(rt, dev, card, u_uni, rate)
-    print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6]}))
+    k_draw = draw_phase(rt, dev, card, u_uni)
+    skills_phase(rt, dev, card)
+    print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6, k_draw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

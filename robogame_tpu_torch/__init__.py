@@ -48,7 +48,8 @@ from .agents.centralized import (BaselineCentralizedPlayers,
 from .agents.dmpc_team import (DMPCPlayer, DMPCTeam, DmpcTeamState,
                                dmpc_matchup, dmpc_state_from_numpy,
                                dmpc_state_to_numpy)
-from .agents.classical import (ClassicalTeam, PlayerState, TeamState,
+from .agents.classical import (ClassicalPlayer, ClassicalTeam, PlayerState,
+                               TeamState,
                                classical_matchup, initial_team_state,
                                team_policy, team_policy_batch,
                                team_state_from_numpy, team_state_to_numpy)
@@ -75,7 +76,7 @@ from .state import (GameState, SimStateView, from_numpy, from_vector,
 
 __all__ = [
     "BaselineCentralizedPlayers", "CbfParams", "CbfResult",
-    "CentralizedTeam", "ClassicalTeam", "CmpcState", "DMPCPlayer",
+    "CentralizedTeam", "ClassicalPlayer", "ClassicalTeam", "CmpcState", "DMPCPlayer",
     "DMPCTeam", "DmpcState", "DmpcTeamState", "GameSim", "GameState",
     "LogRecord", "McParams", "McResult", "MpcParams", "PlayerState",
     "QpSolution", "SimParams", "SimStateView", "StrategyParams",

@@ -10,8 +10,14 @@ trajectory only where the reference's state machine re-plans (a player
 that is idle, or both players when the play flips).
 
 :func:`classical_matchup` pairs two teams, optionally behind the CBF
-safety filter, as a ``monte_carlo`` policy.  ``ClassicalPlayer`` and its
-host skills are not ported yet.
+safety filter, as a ``monte_carlo`` policy.
+
+:class:`ClassicalPlayer` is the reference's single player with its seven
+skills and open-loop playback, on one device: the min-time skills
+(``simple_kick``, ``defend_kick``, ``defend``) plan through
+:func:`..control.trajopt.min_time_traj` (K2 on the card), the others
+through the fixed-final-time, bounce and obstacle planners
+(``control/trajopt.py``, ``contact.py``, ``obstacles.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,13 @@ import torch
 from ..config import (A1, A2, B1, B2, PUCK, CbfParams, SimParams,
                       StrategyParams, resolve_device)
 from ..control.cbf import safe_control_batch
-from ..control.trajopt import MAX_TRAJ, Trajectory, min_time_traj_batch
+from ..control.contact import bounce_pass_wall
+from ..control.obstacles import (_obs_arrays,
+                                 intercepting_with_obs_avoidance,
+                                 min_time_traj_avoid_obs)
+from ..control.trajopt import (MAX_TRAJ, Trajectory, intercepting_traj,
+                               min_time_bounce_kick_traj, min_time_traj,
+                               min_time_traj_batch)
 from ..state import SimStateView
 
 OFFENSE, DEFENSE = 0, 1
@@ -288,6 +300,160 @@ def classical_matchup(params: SimParams, B: int,
 
     return policy, (initial_team_state(B, dtype, dev),
                     initial_team_state(B, dtype, dev))
+
+
+class ClassicalPlayer:
+    """The reference's skill player on ``device`` (cuda unless the caller
+    asks for the CPU).  ``field``: -1 defends the left, +1 the right;
+    ``team``: "A" or "B"; ``player_id``: 1 or 2.  :attr:`state` is one
+    unbatched :class:`PlayerState` on the device; a skill plans a
+    trajectory and installs it (the min-time skills only on success) and
+    returns whether it succeeded; :meth:`get_control` plays it back."""
+
+    def __init__(self, params: SimParams, field: int, team: str,
+                 player_id: int, strat: StrategyParams | None = None,
+                 device="cuda"):
+        self.params = params
+        self.field = field
+        self.team = team
+        self.player_id = player_id
+        self.strat = strat or StrategyParams()
+        self.device = resolve_device(device)
+        self.idle()
+
+    # -- playback ----------------------------------------------------------
+    def get_control(self):
+        """The next control (numpy (2,)) and the task's completed share
+        before it, at most 1."""
+        pct = self.task_percentage_completed()
+        u, state = get_control(PlayerState(*(a[None] for a in self.state)))
+        self.state = PlayerState(*(a[0] for a in state))
+        return u[0].cpu().numpy(), min(pct, 1.0)
+
+    def is_idle(self) -> bool:
+        return bool(is_idle(self.state))
+
+    def task_percentage_completed(self) -> float:
+        return float((self.state.t_idx + 1) / self.state.length)
+
+    def idle(self):
+        self.state = PlayerState(*(a[0] for a in idle_player(
+            1, self.params.torch_dtype, self.device)))
+        return True
+
+    # -- geometry helpers ----------------------------------------------------
+    def get_adversary_goal_pos(self):
+        return np.array([-self.field * self.params.arena_x / 2.0, 0.0])
+
+    def get_home_goal_pos(self):
+        return np.array([self.field * self.params.arena_x / 2.0, 0.0])
+
+    def get_adversary_team(self):
+        return {"A": "B", "B": "A"}[self.team]
+
+    def get_teammate_id(self):
+        return {1: 2, 2: 1}[self.player_id]
+
+    def _t(self, a) -> torch.Tensor:
+        """An array or tensor as a tensor on the device in the dtype."""
+        return torch.as_tensor(a, dtype=self.params.torch_dtype).to(
+            self.device)
+
+    def _me(self, state: SimStateView):
+        return (self._t(state.get_player_pos(self.team, self.player_id)),
+                self._t(state.get_player_vel(self.team, self.player_id)))
+
+    def _others(self, state: SimStateView):
+        adv = self.get_adversary_team()
+        return [state.get_player_pos(self.team, self.get_teammate_id()),
+                state.get_player_pos(adv, 1), state.get_player_pos(adv, 2)]
+
+    def _obstacles(self, state: SimStateView):
+        return _obs_arrays(self._others(state), state.get_puck_pos(),
+                           self.params, self.params.torch_dtype,
+                           device=self.device)
+
+    def _kick_target(self, state: SimStateView, kick_velocity):
+        pf, vf = kick_final_state(self._t(self.get_adversary_goal_pos())[None],
+                                  self._t(state.get_puck_pos())[None],
+                                  kick_velocity, self.params)
+        return pf[0], vf[0]
+
+    def _install(self, traj: Trajectory, only_on_success: bool = True):
+        ok = bool(traj.success)
+        if ok or not only_on_success:
+            self.state = PlayerState(
+                u_traj=traj.u.to(self.params.torch_dtype),
+                t_idx=torch.zeros((), dtype=torch.int32, device=self.device),
+                length=traj.length.to(torch.int32))
+        return ok
+
+    # -- skills --------------------------------------------------------------
+    def timed_kick(self, state, kick_velocity, time_to_kick):
+        """Reach the kick state in ``time_to_kick`` (terminal equality,
+        minimum effort); installed whatever the outcome."""
+        pf, vf = self._kick_target(state, kick_velocity)
+        p0, v0 = self._me(state)
+        n = max(1, int(round(time_to_kick / self.params.dt)))
+        traj = intercepting_traj(p0, v0, pf, vf, self.params, n,
+                                 device=self.device)
+        return self._install(traj, only_on_success=False)
+
+    def timed_kick_avoiding_obs(self, state, kick_velocity, time_to_kick):
+        pf, vf = self._kick_target(state, kick_velocity)
+        p0, v0 = self._me(state)
+        n = max(1, int(round(time_to_kick / self.params.dt)))
+        traj = intercepting_with_obs_avoidance(
+            p0, v0, pf, vf, *self._obstacles(state), self.params, n,
+            device=self.device)
+        return self._install(traj, only_on_success=False)
+
+    def simple_kick(self, state, kick_velocity):
+        pf, vf = self._kick_target(state, kick_velocity)
+        p0, v0 = self._me(state)
+        return self._install(min_time_traj(p0, v0, pf, vf, self.params,
+                                           device=self.device))
+
+    def simple_kick_avoiding_obs(self, state, kick_velocity):
+        pf, vf = self._kick_target(state, kick_velocity)
+        p0, v0 = self._me(state)
+        return self._install(min_time_traj_avoid_obs(
+            p0, v0, pf, vf, *self._obstacles(state), self.params,
+            device=self.device))
+
+    def bounce_kick(self, state, which_wall):
+        """Bank the puck off a wall into the goal (needs tau_puck >= 1)."""
+        plan = bounce_pass_wall(state.get_puck_pos(),
+                                self.get_adversary_goal_pos(), which_wall,
+                                self.params, device=self.device)
+        if not bool(plan.success):
+            return False
+        p0, v0 = self._me(state)
+        traj = min_time_bounce_kick_traj(
+            p0, v0, state.get_puck_pos(), state.get_puck_vel(), plan.v0,
+            self.params, device=self.device)
+        return self._install(traj)
+
+    def defend_kick(self, state, kick_vel):
+        adv = self.get_adversary_team()
+        opp_y = float(state.get_player_pos(adv, 1)[1] +
+                      state.get_player_pos(adv, 2)[1])
+        d = _normalize(self._t([-float(self.field),
+                                float(np.sign(opp_y))])[None])[0]
+        p_puck = self._t(state.get_puck_pos())
+        pf = p_puck - d * (self.params.puck_radius +
+                           self.params.player_radius)
+        p0, v0 = self._me(state)
+        return self._install(min_time_traj(p0, v0, pf, kick_vel * d,
+                                           self.params, device=self.device))
+
+    def defend(self, state):
+        home = self._t(self.get_home_goal_pos())
+        pf = home + 0.5 * (self._t(state.get_puck_pos()) - home)
+        p0, v0 = self._me(state)
+        return self._install(min_time_traj(
+            p0, v0, pf, torch.zeros_like(pf), self.params,
+            device=self.device))
 
 
 class ClassicalTeam:

@@ -13,9 +13,17 @@ factorization per problem.
 
 A trajectory is a padded (2, MAX_TRAJ) control sequence plus a length.
 The glue products are elementwise sums, never matrix products, so they run
-in full f32 whatever the TF32 setting.  ``intercepting_traj``,
-``min_time_bounce_kick_traj`` and ``_fixed_T_qp`` (the host skills of
-``ClassicalPlayer``) are not ported yet.
+in full f32 whatever the TF32 setting.
+
+The fixed-final-time planners of ``ClassicalPlayer``'s skills,
+:func:`intercepting_traj` (terminal equality, minimum effort) and
+:func:`min_time_bounce_kick_traj` (the kick velocity from the elastic
+reset map), solve one condensed QP each (:func:`_fixed_T_qp`, batched over
+a leading problem axis) with :func:`..ops.qp.solve_qp` on the caller's
+device in the params' dtype: that is the port's counterpart of the JAX
+package's ``ops/qp.py::solve_qp``, the plain XLA ADMM that JAX calls
+there, not a fallback from a kernel.  Their shapes lie beyond K2's
+(n <= 64, f32): 40 steps in f64 make n = 80.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from ..config import SimParams, resolve_device
 from ..models.lqsys import condense, exact_ab
 from ..ops import qp_lanes
+from ..ops.qp import _mv, solve_qp
 
 # Solver-grid constants (the reference's N=15 knots, T in [dt, 5])
 N_KNOTS = 15
@@ -58,6 +67,116 @@ def _arena_rows(params: SimParams, N: int, dtype):
     lo = torch.tensor([-hx, -hy], dtype=dtype).repeat(N)
     hi = torch.tensor([hx, hy], dtype=dtype).repeat(N)
     return sel, lo, hi
+
+
+def _fixed_T_qp(x0, xf, h, params: SimParams, N: int, w_terminal: float,
+                w_effort: float, terminal_eq: bool, qp_iters: int):
+    """Condensed horizon QPs of P problems x0 -> xf (P, 4) at step length
+    ``h`` (a float, or (P,) one a problem), solved in one batched
+    :func:`..ops.qp.solve_qp`:
+
+    min  w_eff |U|^2 + w_term |x_N - xf|^2   (or x_N == xf as equality)
+    s.t. |u| <= input_limit (box), arena box on every knot.
+    Returns (U (P, N, 2), x_N (P, 4), converged (P,))."""
+    dtype, dev = x0.dtype, x0.device
+    P = x0.shape[0]
+    A, B = exact_ab(torch.as_tensor(h, dtype=dtype, device=dev),
+                    params.tau_player, dtype)
+    phi, gam = condense(A, B, N)          # X = phi x0 + gam U
+    phi, gam = (a.expand((P,) + a.shape[-2:]) for a in (phi, gam))
+    nU = 2 * N
+    rowN = slice(4 * (N - 1), 4 * N)
+    gN = gam[:, rowN]                                         # (P, 4, nU)
+    phiN_x0 = _mv(phi[:, rowN], x0)                           # (P, 4)
+    gNt = gN.transpose(1, 2)
+    eye = torch.eye(nU, dtype=dtype, device=dev)
+    H = 2.0 * (w_effort * eye + w_terminal * gNt @ gN)
+    g = 2.0 * w_terminal * _mv(gNt, phiN_x0 - xf)
+    sel, plo, phi_hi = (a.to(dev) for a in _arena_rows(params, N, dtype))
+    A_pos = sel @ gam                                         # (P, 2N, nU)
+    off = _mv(sel, _mv(phi, x0))
+    lim = params.input_limit
+    box = torch.full((P, nU), lim, dtype=dtype, device=dev)
+    A_in = torch.cat([eye.expand(P, nU, nU), A_pos], dim=1)
+    lo = torch.cat([-box, plo - off], dim=1)
+    hi = torch.cat([box, phi_hi - off], dim=1)
+    if terminal_eq:
+        A_in = torch.cat([A_in, gN], dim=1)
+        tgt = xf - phiN_x0
+        lo = torch.cat([lo, tgt], dim=1)
+        hi = torch.cat([hi, tgt], dim=1)
+    sol = solve_qp(H, g, A_in, lo, hi, iters=qp_iters)
+    # project out the residual ADMM box violation (exact, cheap)
+    U = sol.x.reshape(P, N, 2).clamp(-lim, lim)
+    xN = phiN_x0 + _mv(gN, U.reshape(P, nU))
+    return U, xN, sol.converged
+
+
+def _vec(a, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=dtype).reshape(-1).to(dev)
+
+
+def intercepting_traj(p0, v0, pf, vf, params: SimParams, n_steps: int,
+                      qp_iters: int = 80, device="cuda") -> Trajectory:
+    """Fixed-T trajectory of one player ((2,) arrays) with terminal
+    equality and minimum effort, ``n_steps`` steps of dt, on ``device``
+    (the exact ZOH model at the dt grid, which the physics integrates
+    exactly).  Leaves without a batch axis."""
+    dev = resolve_device(device)
+    dtype = params.torch_dtype
+    x0 = torch.cat([_vec(p0, dtype, dev), _vec(v0, dtype, dev)])
+    xf = torch.cat([_vec(pf, dtype, dev), _vec(vf, dtype, dev)])
+    N = n_steps
+    U, _, conv = _fixed_T_qp(x0[None], xf[None], params.dt, params, N, 0.0,
+                             1.0, True, qp_iters)
+    conv = conv[0]
+    u_pad = torch.zeros((2, MAX_TRAJ), dtype=dtype, device=dev)
+    u_pad[:, :N] = U[0].T
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    n = torch.full((), N, dtype=torch.int32, device=dev)
+    return Trajectory(u=torch.where(conv, u_pad, zero),
+                      length=torch.where(conv, n, torch.ones_like(n)),
+                      success=conv,
+                      T=torch.full((), params.dt, dtype=dtype, device=dev)
+                      * N)
+
+
+def min_time_bounce_kick_traj(p0, v0, p0_puck, v0_puck, v_puck_desired,
+                              params: SimParams, qp_iters: int = 80,
+                              device="cuda") -> Trajectory:
+    """Reach the kick point with a final velocity that imparts
+    ``v_puck_desired`` through the elastic reset map, in T = 1 (N = 20).
+    With the kick point placed along the desired direction, the reset map
+    pins only the component of the player's final velocity along the
+    contact normal; the tangential component is chosen zero.  (2,) arrays
+    on ``device``; leaves without a batch axis."""
+    dev = resolve_device(device)
+    dtype = params.torch_dtype
+    p0, v0, p_pk, v_pk, vd = (_vec(a, dtype, dev) for a in (
+        p0, v0, p0_puck, v0_puck, v_puck_desired))
+    m1, m2 = params.player_mass, params.puck_mass
+    nrm = torch.sqrt((vd * vd).sum())
+    dirn = vd / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    pf = p_pk - dirn * (params.puck_radius + params.player_radius)
+    nvec = p_pk - pf                       # contact normal (unnormalized)
+    nn = (nvec * nvec).sum()
+    c = 2.0 * m1 / (m1 + m2)
+    # v_after = v2 - c ((v2 - v1).n / |n|^2) n == vd; along n:
+    # (vd - v2).n = c (v1 - v2).n  ->  v1.n
+    v1_dot_n = ((vd - v_pk) * nvec).sum() / c + (v_pk * nvec).sum()
+    v1 = (v1_dot_n / nn) * nvec            # tangential component = 0
+    T = torch.ones((1,), dtype=dtype, device=dev)
+    N = 20
+    h = T / N
+    x0 = torch.cat([p0, v0])[None]
+    xf = torch.cat([pf, v1])[None]
+    U, _, conv = _fixed_T_qp(x0, xf, h, params, N, 0.0, 1.0, True, qp_iters)
+    u_pad, n = _resample(U, h, params.dt, T)
+    conv = conv[0]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    return Trajectory(u=torch.where(conv, u_pad[0], zero),
+                      length=torch.where(conv, n[0], torch.ones_like(n[0])),
+                      success=conv, T=T[0])
 
 
 def _t_grid(params: SimParams) -> np.ndarray:

@@ -13,7 +13,10 @@ source and the flags), and bound with ``ctypes``:
 * K3, ``csrc/dmpc_sqp.cu``: the fused single-agent DMPC SQP solve;
 * K4, ``csrc/cmpc_sqp.cu``: the fused joint two-player CMPC SQP solve;
 * K5, ``csrc/qp_joint.cu``: the structured two-agent QP solve;
-* K6, ``csrc/parallel_step.cu``: the parallel-resolution control step.
+* K6, ``csrc/parallel_step.cu``: the parallel-resolution control step;
+* the draw kernel, ``csrc/game_noise.cu``: every game's standard normals
+  of a stochastic step from its own Philox stream (no TPU kernel: the
+  counterpart of JAX's XLA threefry draws, ``physics/noise.py``).
 
 K3 and K4 share their knot-structured SQP machinery (the constraint
 operator applied through the position sensitivities, never as a stored A)
@@ -35,10 +38,11 @@ which may contract a product and a sum into one FMA: K2's grouped route
 (``-fmad=true``, and ``-Xptxas=-v``, whose report lands in
 ``build_log``), as they are held to their plain versions by tolerance and
 to lie no further from the f64 solution than the plain f32 version
-(``profile_qp.py``, ``profile_sqp.py``); K1, K2's per-problem kernel, K5
-and K6 build with ``-fmad=false``, so each f32 operation is the one their
-plain versions do (K1 and K6 are held to theirs bitwise; K5 with FMA
-contraction lay further from the f64 solution, ``profile_sqp.py``).
+(``profile_qp.py``, ``profile_sqp.py``); K1, K2's per-problem kernel, K5,
+K6 and the draw kernel build with ``-fmad=false``, so each float
+operation is the one their plain versions do (K1 and K6 are held to
+theirs bitwise; K5 with FMA contraction lay further from the f64
+solution, ``profile_sqp.py``).
 
 ``occupancy(name, N, n_obs)`` asks K3's or K4's library for the problems
 an SM it runs (one a block; the card's occupancy calculator) and its
@@ -52,7 +56,10 @@ shape, ``qp_grouped_launches`` its grouped launches (the setup and the
 iterations, one count) and ``qp_listed_launches`` the per-problem launches
 over a grouped launch's equality-row problems, ``sqp_launches`` K3's per
 (n1, m_own) shape, ``cmpc_launches`` K4's and ``joint_launches`` K5's per
-(n1, m_own, m_pair) shape, ``parallel_launches`` K6's per mode.
+(n1, m_own, m_pair) shape, ``parallel_launches`` K6's per mode,
+``noise_launches`` the draw kernel's per substream, ``word_launches``
+its raw-word kernel's (used only to hold the words to the plain
+version's).
 :func:`k2_routes` reads how many problems each K2 route solved since
 :func:`reset_launches` (the grouped ones and the listed ones are counted
 on the device).
@@ -78,7 +85,8 @@ SOURCES = {"exact_step": _PKG / "csrc" / "exact_step.cu",
            "dmpc_sqp": _PKG / "csrc" / "dmpc_sqp.cu",
            "cmpc_sqp": _PKG / "csrc" / "cmpc_sqp.cu",
            "qp_joint": _PKG / "csrc" / "qp_joint.cu",
-           "parallel_step": _PKG / "csrc" / "parallel_step.cu"}
+           "parallel_step": _PKG / "csrc" / "parallel_step.cu",
+           "game_noise": _PKG / "csrc" / "game_noise.cu"}
 # the headers each source includes (hashed with it)
 HEADERS = {"exact_step": [_PKG / "csrc" / "step_common.cuh"],
            "dmpc_sqp": [_PKG / "csrc" / "knot_sqp.cuh"],
@@ -105,6 +113,8 @@ _MODE_ID = {"exact": 0, "exact_export": 1, "exact_resume": 2}
 launches = {mode: 0 for mode in _MODE_ID}
 _PARALLEL_MODE_ID = {"full": 0, "export": 1, "resume": 2}
 parallel_launches = {mode: 0 for mode in _PARALLEL_MODE_ID}
+noise_launches = {s: 0 for s in range(4)}
+word_launches = {"words": 0}
 qp_launches: dict = {}
 qp_grouped_launches: dict = {}
 qp_listed_launches: dict = {}
@@ -119,7 +129,8 @@ _libs: dict = {}
 
 
 def reset_launches() -> None:
-    for counts in (launches, parallel_launches):
+    for counts in (launches, parallel_launches, noise_launches,
+                   word_launches):
         for mode in counts:
             counts[mode] = 0
     for counts in (qp_launches, qp_grouped_launches, qp_listed_launches,
@@ -195,6 +206,7 @@ _SIGNATURES = {
     "cmpc_sqp": ("rg_cmpc_sqp", [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P]),
     "qp_joint": ("rg_qp_joint", [_P] * 9 + [_I] * 6 + [_F] * 6 + [_P]),
     "parallel_step": ("rg_parallel_step", [_P] * 14 + [_I] * 4 + [_P]),
+    "game_noise": ("rg_game_normals", [_P] * 2 + [_I] * 5 + [_P]),
 }
 
 
@@ -210,6 +222,7 @@ _EXTRA = {
     "qp_grouped": [("rg_qp_grouped_setup", [_P] * 4 + [_I] * 3 + [_F, _P]),
                    ("rg_qp_grouped_occupancy", [_P])],
     "qp_joint": [("rg_qp_joint_occupancy", [_I] * 3 + [_P])],
+    "game_noise": [("rg_game_words", [_P] * 2 + [_I] * 4 + [_P])],
 }
 
 
@@ -595,3 +608,58 @@ def qp_joint(Hb, g, Ab, l, u, lx, ux, *, m_own: int, m_pair: int,
     key = (n1, m_own, m_pair)
     joint_launches[key] = joint_launches.get(key, 0) + 1
     return x, stats
+
+
+def _check_keys(keys, substream, it):
+    if keys.dtype != torch.int64 or keys.ndim != 2 or keys.shape[1] != 2 \
+            or not keys.is_contiguous() or keys.device.type != "cuda":
+        raise ValueError(f"draw kernel: expected contiguous int64 (B, 2) "
+                         f"keys on the card, got {keys.dtype} "
+                         f"{tuple(keys.shape)} on {keys.device}")
+    if substream not in noise_launches or not 0 <= it < 2 ** 31:
+        raise ValueError(f"draw kernel: substream {substream}, it {it}")
+
+
+def game_words(keys, n_blocks: int, substream: int, it: int):
+    """The raw Philox words (B, n_blocks, 4) int64 (each a uint32) of the
+    blocks that :func:`game_normals` turns into normals, from the same
+    file's second kernel."""
+    _check_keys(keys, substream, it)
+    B = keys.shape[0]
+    out = torch.empty((B, n_blocks, 4), dtype=torch.int32,
+                      device=keys.device)
+    if B and n_blocks:
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream(keys.device).cuda_stream
+            err = _library("game_noise").rg_game_words(
+                _ptr(keys), _ptr(out), B, int(n_blocks), int(substream),
+                int(it), stream)
+        if err != 0:
+            raise RuntimeError(f"word kernel launch failed: cudaError {err}")
+        word_launches["words"] += 1
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
+def game_normals(keys, n: int, substream: int, it: int, dtype):
+    """Launch the draw kernel on the current stream: (B, n) standard
+    normals (f32 or f64) of each game's Philox ``substream`` at iteration
+    ``it``, keys (B, 2) int64 [seed, counter] on the card
+    (``physics/noise.py`` defines the stream)."""
+    dev = keys.device
+    _check_keys(keys, substream, it)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"draw kernel: float32 or float64, not {dtype}")
+    B = keys.shape[0]
+    out = torch.empty((B, n), dtype=dtype, device=dev)
+    if B == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("game_noise").rg_game_normals(
+            _ptr(keys), _ptr(out), B, int(n), int(substream), int(it),
+            int(dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError(f"draw kernel launch failed: cudaError {err} "
+                           f"(B={B}, n={n}, substream={substream})")
+    noise_launches[substream] += 1
+    return out

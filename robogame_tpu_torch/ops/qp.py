@@ -17,6 +17,12 @@ step, batched over a leading problem axis:
   segment's residuals.
 
 Problem form:   min 1/2 x^T H x + g^T x   s.t.  l <= A x <= u
+
+Beside the kernels' yardstick, :func:`solve_qp` is the port's counterpart
+of JAX's ``solve_qp`` wherever JAX calls that plain XLA ADMM directly:
+the fixed-final-time and obstacle planners of ``control/trajopt.py`` and
+``control/obstacles.py`` run it on the caller's device and dtype.
+:func:`solve_box_ls` is JAX's box-constrained least squares.
 """
 
 from __future__ import annotations
@@ -114,3 +120,23 @@ def solve_qp(H, g, A, l, u, iters: int = 50, rho: float = 1.0,
         rho_s = torch.clamp(rho_s * torch.clamp(ratio, 0.2, 5.0), 1e-6, 1e8)
     conv = (prim < tol * p_sc) & (dual < 10.0 * tol * d_sc)
     return QpSolution(x=x, converged=conv, prim_res=prim, dual_res=dual)
+
+
+@plain_version
+def solve_box_ls(F, b, lo, hi, iters: int = 40, reg: float = 1e-8):
+    """Box-constrained least squares  min ||F x - b||^2  s.t. lo <= x <= hi
+    by projected gradient with the fixed step 1 / ||F^T F + reg I||_2,
+    over any leading batch axes: F (..., m, n), b (..., m), lo/hi
+    broadcastable to (..., n).  For condensed trajectory problems whose
+    only constraints are input boxes (the JAX package's
+    ``ops/qp.py::solve_box_ls``)."""
+    n = F.shape[-1]
+    Ft = F.transpose(-1, -2)
+    H = Ft @ F + reg * torch.eye(n, dtype=F.dtype, device=F.device)
+    g = -_mv(Ft, b)
+    step = 1.0 / torch.linalg.matrix_norm(H, ord=2)[..., None]
+    x = torch.zeros(g.shape, dtype=F.dtype, device=F.device)
+    x = torch.minimum(torch.maximum(x, lo), hi)
+    for _ in range(iters):
+        x = torch.minimum(torch.maximum(x - step * (_mv(H, x) + g), lo), hi)
+    return x

@@ -10,8 +10,10 @@ re-detect only those entities.  Detection keeps one pending-collision
 slot per entity.
 
 JAX ``vmap``s a ``while_loop``; here the loop runs on the host while any
-game has a pending slot (one host sync an iteration) and every write is
-masked by the game's own ``active`` flag, so a game whose loop has ended
+game has a pending slot (one host sync an iteration, which also says
+whether any looping game pops a pair or a wall event, so that a fix-up
+no game takes is not computed) and every write is masked by the game's
+own ``active`` flag, so a game whose loop has ended
 keeps its carry bitwise.  A game never becomes active again, so the one
 shared counter equals each active game's own.  The float evaluation
 order of every formula is the reference's, term by term (that order is
@@ -20,10 +22,12 @@ no value is divided by a host scalar (CUDA divides by one through its
 reciprocal).
 
 Everything runs in the params' dtype on the states' device.  Stochastic
-steps draw each game's noise from its own Philox stream: the populate at
-(seed, counter + 1), loop iteration k at the third counter word k, so a
-game's noise depends on its own key and iteration index alone (a host
-loop over the games).
+steps draw each game's noise from its own Philox stream
+(``physics/noise.py``): the populate from substream 2, loop iteration k
+from substream 3 at iteration word k, one draw-kernel launch each for the
+whole batch on the card, so a game's noise depends on its own key and
+iteration index alone, and the stochastic loop syncs with the host once
+an iteration, as the deterministic one does.
 """
 
 from __future__ import annotations
@@ -31,12 +35,13 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import INTER_AGENT, PUCK, SimParams
 from ..state import GameState
 from .dynamics import entity_consts
+from .noise import (EVENT_ITERATION, EVENT_POPULATE, advance_keys,
+                    game_normals)
 
 _INF = 1.0e9  # "no collision" sentinel (the reference's Collision() t)
 
@@ -204,50 +209,33 @@ def _rk4(x, u, h, h2, h6, tau, drag, noise=None):
     return x + (k1 + 2.0 * k2 + 2.0 * k3 + k4) * h6
 
 
-def _event_rng(seed: int, counter: int, it: int) -> np.random.Generator:
-    """Game (seed, counter)'s Philox stream of a step: the populate at
-    iteration word 0, loop iteration ``it`` at word ``it``."""
-    return np.random.Generator(np.random.Philox(
-        key=seed & 0xFFFFFFFFFFFFFFFF, counter=[0, counter, it, 0]))
+def _with_puck_row(z):
+    """(..., 4 players, 2) normals with a zero puck row appended, so
+    (..., 5, 2): the puck draws nothing."""
+    return torch.cat([z, z.new_zeros(z.shape[:-2] + (1, 2))], dim=-2)
 
 
-def _player_normals(rng, shape, dtype: torch.dtype) -> torch.Tensor:
-    """Standard normals of shape (..., 4 players, 2) with a zero puck row
-    appended, so (..., 5, 2): the puck draws nothing."""
-    npd = np.float64 if dtype == torch.float64 else np.float32
-    z = rng.standard_normal(tuple(shape) + (4, 2), dtype=npd)
-    pad = np.zeros(tuple(shape) + (1, 2), dtype=npd)
-    return torch.from_numpy(np.concatenate([z, pad], axis=-2))
-
-
-def _populate_draws(keys: list, params: SimParams, device) -> torch.Tensor:
-    """(B, G, 4 stages, 5, 2) populate noise, w times each game's normals
-    at (seed, counter + 1)."""
+def _populate_draws(key, params: SimParams) -> torch.Tensor:
+    """(B, G, 4 stages, 5, 2) populate noise: w times each game's normals
+    from substream 2 of its stream (``physics/noise.py``)."""
     G = params.grid_points
-    draws = [_player_normals(_event_rng(seed, ctr + 1, 0), (G, 4),
-                             params.torch_dtype) for seed, ctr in keys]
-    return params.noise * torch.stack(draws).to(device)
+    B = key.shape[0]
+    z = game_normals(key, G * 32, EVENT_POPULATE, 0, params.torch_dtype)
+    return params.noise * _with_puck_row(z.view(B, G, 4, 4, 2))
 
 
-def _iteration_draws(keys: list, games, it: int, params: SimParams, B: int,
-                     device):
-    """Loop iteration ``it``'s noise of the listed games (zeros for the
-    others): the resolve and base-column RK4s' (B, 4 stages, 2, 2) of the
-    two involved rows, and the re-propagation's (B, G, 4 stages, 5, 2)."""
+def _iteration_draws(key, active, it: int, params: SimParams):
+    """Loop iteration ``it``'s noise, substream 3 at iteration ``it`` of
+    every game's stream, zeros for the games not looping (``active``
+    (B,)): the resolve and base-column RK4s' (B, 4 stages, 2, 2) of the two
+    involved rows, and the re-propagation's (B, G, 4 stages, 5, 2)."""
     G = params.grid_points
-    dtype = params.torch_dtype
-    rn = torch.zeros((B, 4, 2, 2), dtype=dtype)
-    pn = torch.zeros((B, 4, 2, 2), dtype=dtype)
-    sn = torch.zeros((B, G, 4, 5, 2), dtype=dtype)
-    npd = np.float64 if dtype == torch.float64 else np.float32
-    for b in games:
-        seed, ctr = keys[b]
-        rng = _event_rng(seed, ctr + 1, it)
-        rn[b] = torch.from_numpy(rng.standard_normal((4, 2, 2), dtype=npd))
-        pn[b] = torch.from_numpy(rng.standard_normal((4, 2, 2), dtype=npd))
-        sn[b] = _player_normals(rng, (G, 4), dtype)
-    w = params.noise
-    return w * rn.to(device), w * pn.to(device), w * sn.to(device)
+    B = key.shape[0]
+    z = game_normals(key, 32 + G * 32, EVENT_ITERATION, it,
+                     params.torch_dtype)
+    z = params.noise * torch.where(active[:, None], z, 0.0)
+    return (z[:, :16].view(B, 4, 2, 2), z[:, 16:32].view(B, 4, 2, 2),
+            _with_puck_row(z[:, 32:].view(B, G, 4, 4, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +267,9 @@ def _update_sim(state: GameState, controls, params: SimParams):
                        dim=1)                                   # (B, 5, 2)
     t0 = state.t.to(dtype)
     x = state.x.to(dtype)
-    keys = state.key.cpu().tolist() if params.stochastic else None
 
     # --- 1. populate the sub-step grid ------------------------------------
-    pop = _populate_draws(keys, params, dev) if params.stochastic else None
+    pop = _populate_draws(state.key, params) if params.stochastic else None
     cols = [x]
     for k in range(G):
         nz = None if pop is None else pop[:, k].unbind(1)
@@ -299,28 +286,28 @@ def _update_sim(state: GameState, controls, params: SimParams):
     counter = 1
     while counter < params.collision_counter_lim:
         active = slots.valid.any(dim=1)
-        if params.stochastic:
-            act = active.cpu()
-            if not bool(act.any()):
-                break
-            games = act.nonzero()[:, 0].tolist()
-        elif not bool(active.any()):
-            break
-        iters += active
-
         # pop the earliest slot; ties go to the highest entity index
         t_eff = torch.where(slots.valid, slots.t, _INF)
         e_pop = 4 - torch.argmin(t_eff.flip(1), dim=1)
         pick = lambda a: a.gather(1, e_pop[:, None])[:, 0]
         tcol, j_pop, ctype = pick(t_eff), pick(slots.j), pick(slots.ctype)
         is_pair = ctype == INTER_AGENT
+        # the iteration's one host sync: whether any game loops, and
+        # whether any looping game pops a pair or a wall event (a fix-up
+        # that no game takes is not computed: its result would be masked)
+        any_active, any_pair, any_wall = torch.stack([
+            active.any(), (active & is_pair).any(),
+            (active & ~is_pair).any()]).tolist()
+        if not any_active:
+            break
+        iters += active
         # the scored latch drops puck events without re-checking
         skip = ((e_pop == PUCK) | (is_pair & (j_pop == PUCK))) & scored
         live = active & ~skip
 
         if params.stochastic:
-            rn, pn, sn = _iteration_draws(keys, games, counter, params, B,
-                                          dev)
+            rn, pn, sn = _iteration_draws(state.key, active, counter,
+                                          params)
             # the puck's dynamics draw no noise
             ents_pre = torch.stack([e_pop, torch.where(is_pair, j_pop, 0)],
                                    dim=1)
@@ -433,12 +420,16 @@ def _update_sim(state: GameState, controls, params: SimParams):
                 nz = None if sn is None else sn[:, c - 1].unbind(1)
                 prop = _rk4(val, us, dtcol, dtcol2, dtcol6, tau_p, drag_p, nz)
                 val = torch.where(m_prop[:, i], prop, old[:, i])
-                pair = _pair_overlap_correction(val, rsum, pcoef, zero)
-                row0 = torch.where(m_pair[:, i], pair[:, 0], torch.where(
-                    m_wall[:, i], _wall_overlap_correction(
-                        val[:, 0], r_i, wall, buf, zero), val[:, 0]))
-                val = torch.stack([row0, torch.where(m_pair[:, i], pair[:, 1],
-                                                     val[:, 1])], dim=1)
+                if any_pair:
+                    pair = _pair_overlap_correction(val, rsum, pcoef, zero)
+                    pair = torch.where(m_pair[:, i, None], pair, val)
+                else:
+                    pair = val
+                if any_wall:
+                    row0 = torch.where(m_wall[:, i], _wall_overlap_correction(
+                        val[:, 0], r_i, wall, buf, zero), pair[:, 0])
+                    pair = torch.stack([row0, pair[:, 1]], dim=1)
+                val = pair
                 out.append(val)
             out = torch.stack(out, dim=1)                     # (B, n, 2, 4)
             # row 1 first: where e_j == e_pop (a wall event) it is unchanged
@@ -471,8 +462,6 @@ def _update_sim(state: GameState, controls, params: SimParams):
         counter += 1
 
     # --- 3. commit the last grid column ------------------------------------
-    new_keys = state.key
-    if params.stochastic:
-        new_keys = state.key + torch.tensor([0, 1], device=dev)
+    new_keys = advance_keys(state.key) if params.stochastic else state.key
     return GameState(x=grid[:, G], score=score, damage=dmg,
                      t=t0 + params.dt, key=new_keys), iters

@@ -701,10 +701,11 @@ def _rnoise_plane(contrib: torch.Tensor) -> torch.Tensor:
 
 
 def _noise_planes(states: GameState, params: SimParams):
-    """Both noise planes of a stochastic step and the advanced keys.  Game
-    b draws from the Philox stream of its (seed, counter + 1), so its noise
-    depends on its own key only (one stream per game: a host loop over the
-    batch)."""
+    """Both noise planes of a stochastic step and the advanced keys: the
+    populate's normals from substream 0 and the re-propagation's from
+    substream 1 of each game's Philox stream (:func:`.sweep.game_draws`:
+    one draw-kernel launch each on the card, no host sync), so a game's
+    noise depends on its own key only."""
     G = params.grid_points
     (xp, xr), new_keys = game_draws(states, (G, G + 1))
     return (_noise_plane(populate_noise(xp, params)),

@@ -62,6 +62,7 @@ def step_batch(states: GameState, controls: torch.Tensor,
     else:
         npl = None
         if params.stochastic:
+            # substream 0, the sweep engine's populate draw
             (xp,), new_keys = game_draws(states, (params.grid_points,))
             npl = ex._noise_plane(populate_noise(xp, params))
         if params.two_phase:

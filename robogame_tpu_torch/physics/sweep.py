@@ -9,9 +9,10 @@ tables are float64 numpy, built once per parameter set.
 Noise: the reference draws fresh normals inside every RK4 stage.  Per
 sub-step that is an additive Gaussian with covariance ``w^2 sum_s M_s M_s^T``;
 one 4-vector per sub-step is drawn through its Cholesky factor L.  Each
-noise function is split in two -- draw standard normals ``xi`` with a
-generator, and transform a given ``xi`` -- so tests can feed the same xi to
-this port and to the JAX package.
+noise function is split in two -- draw standard normals ``xi``
+(:func:`game_draws`, from each game's stream in :mod:`.noise`), and
+transform a given ``xi`` -- so tests can feed the same xi to this port and
+to the JAX package.
 
 The sweep step (:func:`step_sweep`) is the JAX package's
 ``physics/sweep.py::step_sweep`` written out over a leading game axis:
@@ -36,6 +37,7 @@ from ..config import INTER_AGENT, PUCK, SimParams
 from ..state import GameState, undecided
 from .dynamics import entity_consts, rk4_step
 from .engine import _INF, _Slots, _detect
+from .noise import advance_keys, game_normals
 
 
 def _substep_affine_np(params: SimParams):
@@ -105,33 +107,18 @@ def _noise_key(params: SimParams):
             ("tau_puck", params.tau_puck))
 
 
-def draw_xi(rng: np.random.Generator, n: int) -> torch.Tensor:
-    """(n, 4 players, 4) float32 standard normals from ``rng``."""
-    return torch.from_numpy(rng.standard_normal((n, 4, 4),
-                                                dtype=np.float32))
-
-
-def game_rng(seed: int, counter: int) -> np.random.Generator:
-    """The Philox stream of one game at one step: keyed by the game's
-    seed, with the step counter in the second counter word."""
-    return np.random.Generator(np.random.Philox(
-        key=seed & 0xFFFFFFFFFFFFFFFF, counter=[0, counter, 0, 0]))
-
-
 def game_draws(states, sizes):
     """Standard normals of a stochastic step: for each n in ``sizes``, in
-    order, (B, n, 4, 4) float32 drawn from each game's Philox stream at
-    (seed, counter + 1), on the states' device; and the keys advanced by
-    one.  A game's noise depends on its own key only (a host loop over the
-    batch)."""
-    draws = [[] for _ in sizes]
-    for seed, ctr in states.key.cpu().tolist():
-        rng = game_rng(seed, ctr + 1)
-        for out, n in zip(draws, sizes):
-            out.append(draw_xi(rng, n))
-    dev = states.x.device
-    new_keys = states.key + torch.tensor([0, 1], device=dev)
-    return [torch.stack(d).to(dev) for d in draws], new_keys
+    order, (B, n, 4, 4) float32 from substream i (``physics/noise.py``:
+    0 the populate, 1 K1's re-propagation) of each game's Philox stream,
+    keyed by its seed at counter word (counter + 1); and the keys advanced
+    by one.  One draw-kernel launch a size on the states' device (the plain
+    version on the CPU), no host sync; a game's noise depends on its own
+    key only."""
+    B = states.key.shape[0]
+    draws = [game_normals(states.key, n * 16, s).view(B, n, 4, 4)
+             for s, n in enumerate(sizes)]
+    return draws, advance_keys(states.key)
 
 
 def populate_noise(xi: torch.Tensor, params: SimParams) -> torch.Tensor:
@@ -214,9 +201,9 @@ def step_sweep(states: GameState, controls: torch.Tensor,
                params: SimParams) -> GameState:
     """One control step of every game (``engine="sweep"``), on the states'
     device in the params' dtype; controls (B, 4, 2).  Decided games keep
-    their state.  In stochastic mode game b's populate noise is the first
-    draw of its Philox stream at (seed, counter + 1), as on the kernel
-    paths, and every game's key advances."""
+    their state.  In stochastic mode game b's populate noise is substream
+    0 of its Philox stream (:func:`game_draws`), as on the kernel paths,
+    and every game's key advances."""
     new_keys = states.key
     noise = None
     if params.stochastic:

@@ -1,7 +1,8 @@
 """Where a main path's time goes on the card.
 
     python -m robogame_tpu_torch.profile_main_path \
-        [--path bench|classical_cbf|dmpc|cmpc|pallas|event|event_golden]
+        [--path bench|classical_cbf|dmpc|cmpc|pallas|pallas_stoch|
+                exact_stoch|event|event_golden]
 
 ``bench`` (slice 1): the bench workload (8192 games, per-game U(-8, 8)
 schedules held 10 steps, winning_score=4, two-phase exact step) for 200
@@ -22,6 +23,12 @@ more traced.
 (``engine="pallas"``, two-phase on K6) for 200 control steps, then 40
 more traced.
 
+``pallas_stoch`` and ``exact_stoch`` (slice 10): the stochastic rows,
+the bench workload at 2048 games with ``noise=1.0`` on
+``engine="pallas"`` (K6) and ``"pallas_exact"`` (K1), each game's noise
+drawn on the card by the draw kernel (``csrc/game_noise.cu``), for 200
+control steps, then 40 more traced.
+
 ``event`` (slice 9): the bench workload on the event engine
 (``engine="event"``, plain PyTorch) for 10 control steps, then 10 more
 traced.  ``event_golden``: one game in f64 on the golden kick_goal_10s
@@ -34,7 +41,7 @@ time, and a split into K1, K2 (the skills on the grouped route: its
 setup, its iterations and the per-problem kernel's launch over the
 equality-row problems; the CBF QPs on the per-problem kernel, whose
 template argument is its rows per lane, 1 for the CBF's 20), K3, K4, K5,
-K6 and the glue kernels.  Needs a CUDA device.
+K6, the draw kernel and the glue kernels.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import time
 import torch
 
 B, HOLD, STEPS = 8192, 10, 40
+B_STOCH = 2048                     # the stochastic rows
 B_CL, WARM_CL, STEPS_CL = 512, 100, 20
 # kernel-name fragments of the split (a kernel counts in the first group
 # whose fragment its name holds)
@@ -60,24 +68,27 @@ GROUPS = (("K1 exact_step", "exact_step_kernel"),
           ("K3 DMPC SQP (n1=40, m_own=100)", "dmpc_sqp_kernel"),
           ("K4 CMPC SQP (n1=40, m_own=80, m_pair=20)", "cmpc_sqp_kernel"),
           ("K5 joint QP", "qp_joint_kernel"),
-          ("K6 parallel_step", "parallel_step"))
+          ("K6 parallel_step", "parallel_step"),
+          ("draws (game_noise)", "game_normals_kernel"))
 
 
-def _bench(rt, mc, dev, engine="pallas_exact", warm=200, steps=STEPS):
+def _bench(rt, mc, dev, engine="pallas_exact", warm=200, steps=STEPS,
+           n_games=B, **noise):
     p = rt.SimParams(engine=engine, winning_score=4, two_phase=True,
-                     phase1_iters=1, compact_frac=16)
+                     phase1_iters=1, compact_frac=16, **noise)
     g = torch.Generator().manual_seed(0)
     n_rows = (warm + steps) // HOLD + 1
-    u = (torch.rand((n_rows, B, 4, 2), generator=g) * 16.0 - 8.0).to(dev)
+    u = (torch.rand((n_rows, n_games, 4, 2), generator=g) * 16.0
+         - 8.0).to(dev)
 
     def schedule(ps, states):
         k, u_base = ps
         return (k + 1, u_base), u_base[k // HOLD]
 
-    s = mc._initial_states(p, rt.McParams(num_runs=B, randomize_x0=True),
-                           device=dev)
+    s = mc._initial_states(p, rt.McParams(num_runs=n_games,
+                                          randomize_x0=True), device=dev)
     s, ps = mc._run_batch(s, p, warm, schedule, (0, u), device=dev)
-    return p, schedule, s, ps, B, warm, steps
+    return p, schedule, s, ps, n_games, warm, steps
 
 
 def _classical_cbf(rt, mc, dev):
@@ -116,6 +127,16 @@ def _pallas(rt, mc, dev):
     return _bench(rt, mc, dev, engine="pallas")
 
 
+def _pallas_stoch(rt, mc, dev):
+    return _bench(rt, mc, dev, engine="pallas", n_games=B_STOCH,
+                  stochastic=True, noise=1.0)
+
+
+def _exact_stoch(rt, mc, dev):
+    return _bench(rt, mc, dev, engine="pallas_exact", n_games=B_STOCH,
+                  stochastic=True, noise=1.0)
+
+
 def _event(rt, mc, dev):
     return _bench(rt, mc, dev, engine="event", warm=10, steps=10)
 
@@ -139,7 +160,8 @@ def _event_golden(rt, mc, dev):
 
 
 PATHS = {"bench": _bench, "classical_cbf": _classical_cbf, "dmpc": _dmpc,
-         "cmpc": _cmpc, "pallas": _pallas, "event": _event,
+         "cmpc": _cmpc, "pallas": _pallas, "pallas_stoch": _pallas_stoch,
+         "exact_stoch": _exact_stoch, "event": _event,
          "event_golden": _event_golden}
 
 

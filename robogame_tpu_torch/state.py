@@ -6,9 +6,13 @@
 * ``damage`` -- (B, 4, 4) pairwise accumulated damage
 * ``t``      -- (B,) sim time
 * ``key``    -- (B, 2) int64 per-game random stream: [seed, counter].  A
-               stochastic step of a game draws its noise from the Philox
-               stream keyed by seed at counter + 1 and advances the counter,
-               so a game's noise depends on its own key, never on the batch.
+               stochastic step of a game draws its noise from Philox4x32-10
+               keyed by the seed's two 32-bit words, at counter words
+               (block, counter + 1, substream, iteration) with the
+               substreams of ``physics/noise.py`` (0 the populate, 1 K1's
+               re-propagation, 2 and 3 the event engine's populate and
+               loop iterations), and advances the counter, so a game's
+               noise depends on its own key, never on the batch.
 
 The JAX package keys its games with threefry keys, which torch cannot
 reproduce; :func:`from_numpy` / :func:`to_numpy` carry a JAX state's arrays

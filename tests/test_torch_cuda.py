@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the
-card.
+"""The CUDA kernels K1-K6 and the draw kernel against their plain
+PyTorch versions, on the card.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
 Run them on the card with
@@ -717,3 +717,68 @@ def test_k6_refuses_wrong_dtypes_and_shapes(dev):
     with pytest.raises(ValueError):                 # resume needs its carry
         kernels.parallel_step(*args[:9], torch.zeros_like(T.M6), None,
                               "resume", 50)
+
+
+# ---------------------------------------------------------------------------
+# the draw kernel (csrc/game_noise.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# the card's and the host's log and sin/cos may part in the last bits
+NORMAL_ULPS = {torch.float32: 1.0, torch.float64: 4.0}
+
+
+def _draw_keys(dev, B, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    seeds = torch.randint(-2 ** 62, 2 ** 62, (B,), generator=g)
+    ctrs = torch.randint(0, 2 ** 33, (B,), generator=g)
+    return torch.stack([seeds, ctrs], dim=1).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_draw_kernel_equals_plain(dev, dtype):
+    """Every substream at B=1001, G=50's sizes: the words bitwise, the
+    normals within 1 ulp (f32) or 4 ulp (f64) of the plain version on the
+    card; the launches counted per substream."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.physics import noise
+    keys = _draw_keys(dev, 1001)
+    per = noise.per_block(dtype)
+    n0 = dict(kernels.noise_launches)
+    for s, it, n in ((0, 0, 800), (1, 0, 816), (2, 0, 1600), (3, 9, 1632)):
+        nb = -(-n // per)
+        assert torch.equal(kernels.game_words(keys, nb, s, it),
+                           noise.block_words(keys, nb, s, it))
+        z = noise.game_normals(keys, n, s, it, dtype)
+        ref = noise.game_normals_plain(keys, n, s, it, dtype)
+        assert z.dtype == dtype and z.shape == (1001, n)
+        assert noise.ulps(z, ref) <= NORMAL_ULPS[dtype]
+        assert kernels.noise_launches[s] == n0[s] + 1
+
+
+def test_draws_do_not_depend_on_the_batch_and_make_no_sync(dev):
+    """A game's draws are the same in a batch of 8192 and a batch of 3,
+    and every engine's draw functions run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from robogame_tpu_torch.physics import engine, noise
+    from robogame_tpu_torch.physics.sweep import game_draws
+    keys = _draw_keys(dev, 8192)
+    pick = torch.tensor([0, 4097, 8191], device=dev)
+    for dtype in (torch.float32, torch.float64):
+        a = noise.game_normals(keys, 1632, 3, 2, dtype)[pick]
+        b = noise.game_normals(keys[pick], 1632, 3, 2, dtype)
+        assert torch.equal(a, b)
+    p = rt.SimParams(engine="event", stochastic=True, noise=0.8)
+    s = rt.initial_state(p, seed=list(range(512)), device=dev)
+    active = torch.arange(512, device=dev) % 3 == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (xp, xr), keys2 = game_draws(s, (50, 51))
+        pop = engine._populate_draws(s.key, p)
+        rn, pn, sn = engine._iteration_draws(s.key, active, 3, p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert xp.shape == (512, 50, 4, 4) and xr.shape == (512, 51, 4, 4)
+    assert torch.equal(keys2[:, 1], s.key[:, 1] + 1)
+    assert pop.shape == (512, 50, 4, 5, 2) and sn.shape == (512, 50, 4, 5, 2)
+    assert not rn[~active].any()

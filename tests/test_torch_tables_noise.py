@@ -14,6 +14,7 @@ from robogame_tpu.physics import sweep as jsw
 
 from robogame_tpu_torch.config import SimParams
 from robogame_tpu_torch.physics import exact_step as tex
+from robogame_tpu_torch.physics.noise import REPROPAGATION, game_normals
 from robogame_tpu_torch.physics import sweep as tsw
 
 torch.set_num_threads(1)
@@ -122,13 +123,17 @@ def test_noise_planes_layout_matches_jax():
 
 def test_repropagation_noise_covariance_is_LLt_w2():
     """Sample covariance of the per-substep contributions drawn through
-    the port's generator path equals w^2 L L^T (16384 x 4 players x 51
-    rows of samples: relative sampling error ~1%; tolerance 5% of the
-    largest entry)."""
+    the port's stream (substream 1 of 16384 games' Philox streams, the
+    re-propagation draw) equals w^2 L L^T (16384 x 4 players x 51 rows of
+    samples: relative sampling error ~1%; tolerance 5% of the largest
+    entry)."""
     w = 0.8
     p = SimParams(dtype="float32", stochastic=True, noise=w)
-    xi = torch.stack([tsw.draw_xi(tsw.game_rng(s, 1), p.grid_points + 1)
-                      for s in range(16384)])
+    B = 16384
+    keys = torch.stack([torch.arange(B), torch.ones(B, dtype=torch.int64)],
+                       dim=1)
+    xi = game_normals(keys, (p.grid_points + 1) * 16, REPROPAGATION).view(
+        B, p.grid_points + 1, 4, 4)
     eta = tsw.repropagation_noise(xi, p).reshape(-1, 4).double().numpy()
     _, _, L = tsw._substep_affine_np(p)
     ref = w * w * (L @ L.T)
