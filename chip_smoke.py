@@ -160,6 +160,23 @@ Phases, each failing loudly (nothing here catches an error):
     2e-3 + 1e-2 |u|; the others, f64 solve_qp, within 1e-6); (c) the time
     of a skill call on the card.
 
+12. the rest of the package: (a) the puck-player MPC at MpcParams() on
+    the card (a cold K2 solve an SQP iteration, counted) against the CPU
+    from common states over two calls, f32 and f64, u1 within 2e-3 +
+    1e-2 |u|, and its time a call; (b) the exact MIQP branch and bound in
+    f64 on the card (tests/test_torch_miqp.py's instance): optimal,
+    within 1e-3 (1 + f) of the CPU's and of the enumeration on the card,
+    its nodes and seconds; (c) ``monte_carlo(mesh=make_mesh())`` at one
+    NCCL process on engine="pallas_exact" (K1) and "pallas" (K6), B=8192 x
+    40 steps, bitwise equal to the mesh-less sweep; (d) ``python -m
+    robogame_tpu_torch.distributed_mc`` at 2 Gloo processes on the host
+    CPU; (e) ``chunk_steps=100`` over phase 2's workload, bitwise equal to
+    phase 2's run, its ``PhaseTimer`` rate beside phase 2's; (f)
+    ``checkpointed_scan`` of K1 at B=8192 stopped at step 16 and resumed
+    to 40, bitwise equal to the uninterrupted run, a checkpoint's bytes
+    and seconds; (g) ``trace`` around three K1 steps: the trace names
+    K1's kernel.
+
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6, the draw
 kernel; K1's and
@@ -2568,6 +2585,233 @@ def skills_phase(rt, dev, card):
               f"the card  [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the puck player, the MIQP, the mesh, chunked and checkpointed
+# sweeps, the trace
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_puck_player.py's two calls (cold, then warm) and its four
+# obstacles
+PUCK_CALLS = [(np.array([-2.0, 0, 0, 0]), np.array([1.0, 0, 0, 0])),
+              (np.array([-1.7, 0.1, 2.0, 0.5]), np.array([1.2, 0.3, 0.5, 0.0]))]
+PUCK_X_P2, PUCK_GOAL = np.array([-2.0, -1, 0, 0]), np.array([5.0, 0.0])
+PUCK_OBS = np.array([[3.0, 2.0], [3.0, -2.0], [0.0, 1.2], [0.5, -1.5]])
+# tests/test_torch_miqp.py's instance
+MIQP = (np.array([-1.5, 0.0]), np.zeros(2), np.array([1.5, 0.0]), np.zeros(2),
+        np.array([[0.0, 0.0]]), np.array([0.45]), np.array([True]))
+
+
+def _puck_player(rt, dev, card):
+    """(a): the puck player at MpcParams() on the card (route "lanes": K2,
+    n=40, m=140) against the CPU (route "plain") from common states."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.control import puck_player_mpc as pp
+    mpc = rt.MpcParams()
+    for dtype in ("float32", "float64"):
+        params = rt.SimParams(dtype=dtype)
+        td = params.torch_dtype
+        st_cpu = pp.initial_state(mpc, td, "cpu")
+        worst, same_h, times = 0.0, 0, []
+        kernels.reset_launches()
+        for x_p1, x_puck in PUCK_CALLS:
+            args = [torch.as_tensor(a, dtype=td) for a in (
+                x_p1, PUCK_X_P2, x_puck, PUCK_GOAL, PUCK_OBS)]
+            st_card = pp.JointPuckPlayerState(pp.DmpcState(
+                *(a.to(dev) for a in st_cpu.p1)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_card, u1, u2 = pp.compute_control(
+                st_card, *(a.to(dev) for a in args), params, mpc)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            st_cpu, u1_c, _ = pp.compute_control(st_cpu, *args, params, mpc)
+            d = (u1.cpu() - u1_c).abs()
+            worst = max(worst, float(d.max()))
+            check(bool((d <= X_ATOL + X_RTOL * u1_c.abs()).all()),
+                  f"(12a) {dtype}: u1 on the card {u1.tolist()} against "
+                  f"{u1_c.tolist()} on the CPU")
+            check(bool(new_card.p1.valid.cpu() == st_cpu.p1.valid) and
+                  bool((u2 == 0).all()), f"(12a) {dtype}: state or u2")
+            same_h += bool(new_card.p1.h.cpu() == st_cpu.p1.h)
+        k2 = kernels.qp_launches.get((2 * mpc.N, 7 * mpc.N), 0)
+        check(k2 == len(PUCK_CALLS) * mpc.sqp_iters,
+              f"(12a) {dtype}: {k2} K2 launches, not one an SQP iteration")
+        # a call's time, warm
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pp.compute_control(st_card, *(a.to(dev) for a in args), params,
+                               mpc)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"phase12 (a) puck player {dtype} (N={mpc.N}, t_grid="
+              f"{mpc.t_grid}, 4 obstacles trimmed to 3): card (K2, {k2} "
+              f"launches at n=40, m=140) == CPU from common states over "
+              f"{len(PUCK_CALLS)} calls (max|du1| {worst:.3g}, tolerance "
+              f"{X_ATOL} + {X_RTOL} |u|; winner's h equal in {same_h} of "
+              f"{len(PUCK_CALLS)}); {ms:.2f} ms a call on the card (first "
+              f"call {1e3 * times[0]:.1f} ms)  [{card}]", flush=True)
+
+
+def _miqp(rt, dev, card):
+    """(b): the exact branch and bound in f64 on the card."""
+    from robogame_tpu_torch.control import miqp
+    params = rt.SimParams(dtype="float64", dt=0.3)
+    N = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, info = miqp.solve_bb_exact(*MIQP, params, N, device=dev)
+    torch.cuda.synchronize()
+    bb_s = time.perf_counter() - t0
+    _, info_cpu = miqp.solve_bb_exact(*MIQP, params, N, device="cpu")
+    t0 = time.perf_counter()
+    f_enum = miqp.solve_enumerate(*MIQP, params, N, device=dev)
+    enum_s = time.perf_counter() - t0
+    f = info["objective"]
+    check(info["status"] == "optimal" and bool(traj.success.cpu()) and
+          traj.u.is_cuda, f"(12b) branch and bound on the card: {info}")
+    for tag, ref in (("CPU", info_cpu["objective"]), ("enumeration", f_enum)):
+        check(abs(f - ref) <= 1e-3 * (1 + abs(ref)),
+              f"(12b) objective {f} against the {tag}'s {ref}")
+    print(f"phase12 (b) MIQP branch and bound on the card (f64, N={N}, one "
+          f"box): optimal, objective {f:.9g} (CPU {info_cpu['objective']:.9g},"
+          f" enumeration of 4^{N} on the card {f_enum:.9g}), {info['nodes']} "
+          f"nodes in {bb_s:.3f} s (enumeration {enum_s:.3f} s)  [{card}]",
+          flush=True)
+
+
+def _mesh(rt, dev, card):
+    """(c): monte_carlo(mesh=make_mesh()) at one NCCL process, bitwise
+    against the mesh-less sweep, on K1 and K6."""
+    import torch.distributed as dist
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and mesh.size() == 1 and
+              mesh.device_type == "cuda", "(12c) not a one-process NCCL mesh")
+        mc = rt.McParams(num_runs=B_MAIN, T=2.0, randomize_x0=True)
+        for engine, counts in (("pallas_exact", kernels.launches),
+                               ("pallas", kernels.parallel_launches)):
+            p = rt.SimParams(engine=engine)
+            plain = rt.monte_carlo(p, mc, device=dev)
+            kernels.reset_launches()
+            sh = rt.monte_carlo(p, mc, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            n = sum(counts.values())
+            check(n >= 40, f"(12c) {engine}: {n} kernel launches on the mesh")
+            check(all(torch.equal(a, b) for a, b in zip(plain, sh)),
+                  f"(12c) {engine}: the mesh's sweep differs")
+            print(f"phase12 (c) monte_carlo(mesh=make_mesh()) at one NCCL "
+                  f"process, engine={engine}, B={B_MAIN} x 40 steps: scores, "
+                  f"damage and t == the mesh-less sweep bitwise ({n} kernel "
+                  f"launches: {dict(counts)})  [{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def rest_phase(rt, dev, card, u_uni, k1_rate, res_main, pm, schedule):
+    """Phase 12: (a) the puck player on the card against the CPU; (b) the
+    exact MIQP on the card; (c) the one-process NCCL mesh; (d)
+    distributed_mc at 2 Gloo processes on the host; (e) chunk_steps=100
+    over phase 2's workload, bitwise, timed by PhaseTimer; (f)
+    checkpointed_scan of K1 interrupted and resumed, bitwise; (g) a trace
+    of three K1 steps that names K1's kernel."""
+    import os
+    import shutil
+    import tempfile
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.utils import (PhaseTimer, checkpointed_scan,
+                                          save_checkpoint, trace)
+    mc_mod = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
+    _puck_player(rt, dev, card)
+    _miqp(rt, dev, card)
+    _mesh(rt, dev, card)
+
+    # ---- (d) two Gloo processes on the host ------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "robogame_tpu_torch.distributed_mc",
+         "--nproc", "2", "--games", "64", "--steps", "20", "--device",
+         "cpu"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, OMP_NUM_THREADS="1"), capture_output=True,
+        text=True, timeout=600)
+    check(out.returncode == 0, f"(12d) distributed_mc: {out.stdout[-2000:]}"
+          f"{out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    check(rec["ok"] and rec["stats"]["damage_total"] > 1.0,
+          f"(12d) distributed_mc: {rec}")
+    print(f"phase12 (d) distributed_mc, 2 Gloo processes on the host CPU "
+          f"(64 games x 20 steps, sweep engine): {json.dumps(rec)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- (e) chunked, bitwise against phase 2's run ----------------------
+    mc_main = rt.McParams(num_runs=B_MAIN, T=20.0, randomize_x0=True)
+    pt = PhaseTimer()
+    kernels.reset_launches()
+    with pt.phase("chunked", items=B_MAIN * N_STEPS):
+        res = rt.monte_carlo(pm, mc_main, policy=schedule,
+                             policy_state=(0, u_uni), chunk_steps=100,
+                             device=dev)
+        torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(res, res_main)),
+          "(12e) chunk_steps=100 differs from phase 2's sweep")
+    check(kernels.launches["exact_export"] >= N_STEPS,
+          "(12e) the chunked sweep did not run K1 every step")
+    print(f"phase12 (e) chunk_steps=100 over phase 2's workload (B={B_MAIN} "
+          f"x {N_STEPS}): == phase 2 bitwise; PhaseTimer "
+          f"{pt.rates()['chunked']:.1f} control-steps/s beside phase 2's "
+          f"{k1_rate:.1f}  [{card}]", flush=True)
+
+    # ---- (f) checkpointed_scan of K1, interrupted and resumed ------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        u = u_uni[3]
+
+        def step_fn(s):
+            return rt.step_batch(s, u, pm, device=dev)
+
+        s0 = mc_mod._initial_states(pm, mc_main, device=dev)
+        path = os.path.join(tmp, "run.npz")
+        full = checkpointed_scan(step_fn, s0, 40, os.path.join(tmp, "f.npz"),
+                                 every=40)
+        checkpointed_scan(step_fn, s0, 16, path, every=8)
+        kernels.reset_launches()
+        resumed = checkpointed_scan(step_fn, s0, 40, path, every=8)
+        n_res = kernels.launches["exact_export"]
+        check(n_res == 24, f"(12f) the resumed run made {n_res} steps, not 24")
+        check(all(torch.equal(a, b) for a, b in zip(full, resumed)),
+              "(12f) the resumed run differs from the uninterrupted one")
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "t.npz"), resumed, {"step": 40})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase12 (f) checkpointed_scan of K1 at B={B_MAIN}: stopped at "
+          f"step 16, resumed to 40 (24 K1 steps), == the uninterrupted run "
+          f"bitwise; a checkpoint {nbytes} bytes, saved in {save_s:.4f} s  "
+          f"[{card}]", flush=True)
+
+    # ---- (g) a trace of three K1 steps -----------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tr_")
+    try:
+        s = resumed
+        with trace(tmp) as d:
+            for _ in range(3):
+                s = step_fn(s)
+            torch.cuda.synchronize()
+        names = [f for f in os.listdir(d) if f.endswith(".pt.trace.json")]
+        check(len(names) == 1, f"(12g) trace files: {names}")
+        with open(os.path.join(d, names[0])) as f:
+            text = f.read()
+        check("exact_step_kernel" in text, "(12g) the trace names no K1")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase12 (g) trace of 3 K1 steps: {len(text)} bytes, names "
+          f"exact_step_kernel {text.count('exact_step_kernel')} times  "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2838,6 +3082,7 @@ def main() -> int:
     event_phase(rt, dev, card, u_uni, rate)
     k_draw = draw_phase(rt, dev, card, u_uni)
     skills_phase(rt, dev, card)
+    rest_phase(rt, dev, card, u_uni, rate, res, pm, schedule)
     print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6, k_draw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,12 @@ Every entry point runs on ``cuda`` unless the caller passes
                                        x0_vel_range=2.0),
                       policy=policy, policy_state=ps)
 
+    # the same sweep sharded over the job's processes, one card each
+    # (torchrun --nproc-per-node <cards> script.py)
+    from robogame_tpu_torch.parallel import make_mesh
+    res = monte_carlo(SimParams(engine="pallas_exact"), McParams(8192),
+                      mesh=make_mesh())
+
     # DMPC vs DMPC (the reference's test_dmpc.py), 512 full games
     from robogame_tpu_torch import dmpc_matchup
     policy, ps = dmpc_matchup(params, 512, "dmpc")
@@ -53,8 +59,8 @@ from .agents.classical import (ClassicalPlayer, ClassicalTeam, PlayerState,
                                classical_matchup, initial_team_state,
                                team_policy, team_policy_batch,
                                team_state_from_numpy, team_state_to_numpy)
-from .config import (CbfParams, MpcParams, SimParams, StrategyParams,
-                     resolve_device)
+from .config import (A1, A2, B1, B2, PUCK, CbfParams, MpcParams, SimParams,
+                     StrategyParams, resolve_device)
 from .control.cbf import CbfResult, safe_control, safe_control_batch
 from .control.cmpc import CmpcState, initial_cmpc_state
 from .control.dmpc import DmpcState, compute_control, compute_control_batch
@@ -75,7 +81,7 @@ from .state import (GameState, SimStateView, from_numpy, from_vector,
                     initial_state, to_numpy, to_vector, undecided)
 
 __all__ = [
-    "BaselineCentralizedPlayers", "CbfParams", "CbfResult",
+    "A1", "A2", "B1", "B2", "PUCK", "BaselineCentralizedPlayers", "CbfParams", "CbfResult",
     "CentralizedTeam", "ClassicalPlayer", "ClassicalTeam", "CmpcState", "DMPCPlayer",
     "DMPCTeam", "DmpcState", "DmpcTeamState", "GameSim", "GameState",
     "LogRecord", "McParams", "McResult", "MpcParams", "PlayerState",

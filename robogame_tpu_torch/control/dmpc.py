@@ -290,22 +290,36 @@ class Candidates(NamedTuple):
 def candidates(state: DmpcState, x0, x_des, obstacles, params: SimParams,
                mpc: MpcParams, route: str = "fused") -> Candidates:
     """Solve every candidate of Bq instances (state leaves (Bq, ...), x0
-    and x_des (Bq, 4), obstacles (Bq, 3, 2)) by ``route``."""
+    and x_des (Bq, 4), obstacles (Bq, 3, 2)) by ``route``: the step sizes
+    of :func:`candidate_steps`, each candidate started from the previous
+    winner's U where the state is valid."""
+    dtype = x0.dtype
+    minT = params.dt * mpc.minT_frac / mpc.N
+    maxT = 5.0 / mpc.N
+    hs = candidate_steps(minT, maxT, mpc.t_grid, mpc.t_local, state.h,
+                         state.valid, dtype)
+    U0 = torch.where(state.valid[:, None], state.U,
+                     torch.zeros((), dtype=dtype, device=x0.device))
+    return solve_candidates(hs, U0, x0, x_des, obstacles, params, mpc,
+                            route)
+
+
+def solve_candidates(hs, U0, x0, x_des, obstacles, params: SimParams,
+                     mpc: MpcParams, route: str = "fused") -> Candidates:
+    """Solve the candidates of Bq instances over given step sizes ``hs``
+    (Bq, T), each started from ``U0`` (Bq, nU), with x0 and x_des (Bq, 4)
+    and obstacles (Bq, 3, 2), by ``route`` (the JAX package's
+    ``_solve_candidate``, batched)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if route == "plain" and x0.is_cuda:
         raise ValueError("route='plain' runs on CPU tensors only; use "
                          "'fused' (K3) or 'lanes' (K2) on the card")
     dtype = x0.dtype
-    Bq = x0.shape[0]
-    T = mpc.t_grid
+    Bq, T = hs.shape
     N = mpc.N
     nU = 2 * N
     obs = obstacles.to(dtype).reshape(Bq, N_NEIGHBORS, 2)
-    minT = params.dt * mpc.minT_frac / mpc.N
-    maxT = 5.0 / mpc.N
-    hs = candidate_steps(minT, maxT, T, mpc.t_local, state.h, state.valid,
-                         dtype)
 
     def rep(a):
         return a.repeat_interleave(T, dim=0)
@@ -313,8 +327,6 @@ def candidates(state: DmpcState, x0, x_des, obstacles, params: SimParams,
     prep_fn = _prepare_fused if route == "fused" else _prepare
     prep = prep_fn(hs.reshape(-1), rep(x0.to(dtype)), rep(x_des.to(dtype)),
                    rep(obs), params, mpc)
-    U0 = torch.where(state.valid[:, None], state.U,
-                     torch.zeros((), dtype=dtype, device=x0.device))
     U = rep(U0.to(dtype))
     margin = None
 

@@ -4,7 +4,9 @@ All games of a sweep step in lockstep as one batch: a host loop over
 control steps, each step one :func:`..physics.step.step_batch` (on the
 card, K1 for ``engine="pallas_exact"``, K6 for ``engine="pallas"``; the
 event and sweep engines are plain PyTorch), with a log record a step on
-request.  Sharding over several cards is not ported yet.
+request.  Over a mesh of processes (:mod:`.mesh`, one card each) every
+rank steps its own contiguous slice of the batch and the results are
+all-gathered, so every rank returns the whole sweep.
 """
 
 from __future__ import annotations
@@ -15,11 +17,14 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SimParams, resolve_device
-from ..physics.rollout import log_record, stack_records
+from ..physics.rollout import LogRecord, log_record, stack_records
 from ..physics.step import step_batch
 from ..state import GameState, initial_state
+from ..utils.tree import tree_map
+from .mesh import BATCH_AXIS, shard_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,23 +93,101 @@ def _run_batch(states: GameState, params: SimParams, n_steps: int,
     return s, ps
 
 
+def _run_batch_chunked(states: GameState, params: SimParams, n_steps: int,
+                       policy: Callable | None, policy_state, device,
+                       log: bool, chunk_steps: int):
+    """:func:`_run_batch` in host segments of at most ``chunk_steps``
+    steps, with one host sync a segment: the carry between segments is the
+    state itself, so the results are those of the unchunked run,
+    bitwise."""
+    dev = resolve_device(device)
+    s, ps, parts = states, policy_state, []
+    done = 0
+    while done < n_steps:
+        n = min(chunk_steps, n_steps - done)
+        s, ps, *recs = _run_batch(s, params, n, policy, ps, device=dev,
+                                  log=log)
+        parts.extend(recs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        done += n
+    if log:
+        return s, ps, LogRecord(*(torch.cat(f) for f in zip(*parts)))
+    return s, ps
+
+
+def _gather(a: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's ``a`` (one shape on all), concatenated along ``dim``
+    in rank order, on every rank."""
+    parts = [torch.empty_like(a) for _ in range(mesh.size())]
+    dist.all_gather(parts, a.contiguous(), group=mesh.get_group(BATCH_AXIS))
+    return torch.cat(parts, dim=dim)
+
+
+def sweep(params: SimParams, mc: McParams, policy: Callable | None = None,
+          policy_state=None, mesh=None, log: bool = False,
+          chunk_steps: int | None = None, device="cuda"):
+    """The sweep of :func:`monte_carlo`, returning the final
+    :class:`GameState` of all ``mc.num_runs`` games (and with ``log`` the
+    records, else None).
+
+    With ``mesh``, the batch (padded with duplicate games to a multiple of
+    the mesh's size) and the policy state's batch-leading tensors are cut
+    into one contiguous slice a rank; each rank steps its slice and the
+    final states (and records) are all-gathered and cut back to
+    ``num_runs``."""
+    n_steps = int(np.ceil(mc.T / params.dt))
+    states = _initial_states(params, mc, device=device)
+    B = mc.num_runs
+    if mesh is not None:
+        n_pad = -B % mesh.size()
+        if n_pad:
+            pad_idx = torch.arange(n_pad) % B
+
+            def pad(a):
+                if isinstance(a, torch.Tensor) and a.ndim and \
+                        a.shape[0] == B:
+                    return torch.cat([a, a[pad_idx.to(a.device)]])
+                return a
+
+            states = tree_map(pad, states)
+            policy_state = tree_map(pad, policy_state)
+        states = shard_batch(states, mesh, B + n_pad)
+        policy_state = shard_batch(policy_state, mesh, B + n_pad)
+    if chunk_steps is not None and chunk_steps < n_steps:
+        final, _, *recs = _run_batch_chunked(states, params, n_steps, policy,
+                                             policy_state, device, log,
+                                             chunk_steps)
+    else:
+        final, _, *recs = _run_batch(states, params, n_steps, policy,
+                                     policy_state, device=device, log=log)
+    recs = recs[0] if log else None
+    if mesh is not None:
+        final = GameState(*(_gather(a, mesh, 0)[:B] for a in final))
+        if log:
+            recs = LogRecord(*(_gather(a, mesh, 1)[:, :B] for a in recs))
+    return final, recs
+
+
 def monte_carlo(params: SimParams, mc: McParams,
                 policy: Callable | None = None, policy_state=None,
                 mesh=None, log: bool = False, write_config: bool = False,
-                device="cuda"):
+                chunk_steps: int | None = None, device="cuda"):
     """Run the full sweep of ``mc.num_runs`` games for ceil(T/dt) control
     steps on ``device``.  Returns the :class:`McResult`, and with ``log``
-    ``(result, records)``: the LogRecord of every step, (T, B, ...)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded sweeps are not ported yet")
-    n_steps = int(np.ceil(mc.T / params.dt))
-    states = _initial_states(params, mc, device=device)
-    final, _, *recs = _run_batch(states, params, n_steps, policy,
-                                 policy_state, device=device, log=log)
+    ``(result, records)``: the LogRecord of every step, (T, B, ...).
+
+    ``mesh`` (:func:`.mesh.make_mesh`): shard the games over the job's
+    processes, one card each; every rank returns the whole result (see
+    :func:`sweep`).  ``chunk_steps``: sync with the host after every
+    segment of at most this many steps; the results are the same
+    bitwise."""
+    final, recs = sweep(params, mc, policy, policy_state, mesh, log,
+                        chunk_steps, device)
     if write_config:
         write_configuration(params, mc)
     res = McResult(scores=final.score, damage=final.damage, t_final=final.t)
-    return (res, recs[0]) if log else res
+    return (res, recs) if log else res
 
 
 def write_configuration(params: SimParams, mc: McParams) -> None:

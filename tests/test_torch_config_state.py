@@ -20,6 +20,7 @@ from robogame_tpu.state import to_vector as j_to_vector
 
 import robogame_tpu_torch as rt
 import robogame_tpu_torch.config as tcfg
+from robogame_tpu_torch.parallel import make_mesh
 from robogame_tpu_torch.physics import dynamics as tdyn
 
 torch.set_num_threads(1)
@@ -179,6 +180,5 @@ def test_entry_points_raise_without_a_card():
         rt.step_batch(s, u, p.replace(engine="event"))
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.GameSim()
-    with pytest.raises(NotImplementedError):
-        rt.monte_carlo(p, rt.McParams(num_runs=2, T=0.1), mesh=object(),
-                       device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K6 and the draw kernel against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card; the puck player on K2 against the CPU, and
+a one-process NCCL mesh against the mesh-less sweep.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
 Run them on the card with
@@ -782,3 +783,53 @@ def test_draws_do_not_depend_on_the_batch_and_make_no_sync(dev):
     assert torch.equal(keys2[:, 1], s.key[:, 1] + 1)
     assert pop.shape == (512, 50, 4, 5, 2) and sn.shape == (512, 50, 4, 5, 2)
     assert not rn[~active].any()
+
+
+# ---------------------------------------------------------------------------
+# the puck player (K2 a cold solve an SQP iteration) and the NCCL mesh
+# ---------------------------------------------------------------------------
+
+def test_puck_player_on_the_card_equals_the_cpu(dev):
+    """MpcParams() (n=40, m=140 on K2's per-problem kernel): the card's
+    control within 2e-3 + 1e-2 |u| of the CPU's plain solves, two calls
+    from common states, the state's flag equal, one K2 launch an SQP
+    iteration."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.control import puck_player_mpc as pp
+    mpc = rt.MpcParams()
+    params = rt.SimParams()
+    st = pp.initial_state(mpc, torch.float32, "cpu")
+    obs = torch.tensor([[3.0, 2.0], [3.0, -2.0], [0.0, 1.2], [0.5, -1.5]])
+    goal = torch.tensor([5.0, 0.0])
+    x_p2 = torch.tensor([-2.0, -1.0, 0.0, 0.0])
+    kernels.reset_launches()
+    for x_p1, x_puck in (([-2.0, 0, 0, 0], [1.0, 0, 0, 0]),
+                         ([-1.7, 0.1, 2.0, 0.5], [1.2, 0.3, 0.5, 0.0])):
+        args = [torch.tensor(x_p1), x_p2, torch.tensor(x_puck), goal, obs]
+        st_dev = pp.JointPuckPlayerState(pp.DmpcState(
+            *(a.to(dev) for a in st.p1)))
+        new, u1, u2 = pp.compute_control(st_dev, *(a.to(dev) for a in args),
+                                         params, mpc)
+        st, u1_c, _ = pp.compute_control(st, *args, params, mpc)
+        torch.testing.assert_close(u1.cpu(), u1_c, atol=2e-3, rtol=1e-2)
+        assert bool(new.p1.valid.cpu() == st.p1.valid)
+        assert u1.is_cuda and bool((u2 == 0).all())
+    assert kernels.qp_launches[(2 * mpc.N, 7 * mpc.N)] == 2 * mpc.sqp_iters
+
+
+def test_one_process_nccl_mesh_equals_meshless(dev):
+    """``monte_carlo(mesh=make_mesh())`` at one NCCL process gives the
+    mesh-less sweep bitwise, on K1."""
+    import torch.distributed as dist
+    from robogame_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        p = rt.SimParams(engine="pallas_exact")
+        mcp = rt.McParams(num_runs=96, T=0.5, randomize_x0=True)
+        a = rt.monte_carlo(p, mcp, device=dev)
+        b = rt.monte_carlo(p, mcp, mesh=mesh, device=dev)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    finally:
+        dist.destroy_process_group()

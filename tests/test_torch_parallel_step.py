@@ -3,8 +3,9 @@ the plain PyTorch version of K6) against the JAX package: its Pallas K6 in
 interpret mode (one compile in this file), and its XLA ``step_sweep``.
 
 Measured (CPU, f32, per control step from common states): against JAX's
-K6 at most 2.4e-7 in x on random play and 4.8e-7 on corner pile-ups, with
-damage equal; against JAX's ``step_sweep`` 2.4e-7 on random play.  The
+K6 at most 2.4e-7 in x on random play and, on corner pile-ups, 4.8e-7
+over 16 games and 3.5e-5 over 128 games (a probe at the default params),
+with damage equal; against JAX's ``step_sweep`` 2.4e-7 on random play.  The
 populate and the tails sum the six non-zeros of M where JAX takes 32-term
 dots, so the two differ in f32 roundoff only; held here to JAX's own
 tolerances (tests/test_pallas.py:44-48): x 1e-4, damage 1e-5, scores

@@ -63,12 +63,18 @@ def _groups():
 GROUPS = list(_groups().items())
 
 
+# the early windows' rollouts, (parts, states at segment ends, state at
+# EARLY) by group: a full run resumes from its group's window (the state is
+# the whole carry, so that equals one rollout from the start, bitwise)
+_EARLY_RUNS = {}
+
+
 def _run_group(params, names, n_steps=None):
     """The group's scenarios as one batch, each on its own schedule (zero
     controls past its end) for ``n_steps`` (default: the longest), rolled
-    out in segments that end at each scenario's last step.  Returns the
-    stacked records (T, B, ...) and each scenario's state at its own last
-    step (the whole batch's)."""
+    out in segments that end at each scenario's last step and at EARLY.
+    Returns the stacked records (T, B, ...) and each scenario's state at
+    its own last step (the whole batch's)."""
     metas = [_meta(n) for n in names]
     T = max(m["n_steps"] for m in metas) if n_steps is None else n_steps
     u = np.zeros((T, len(names), 4, 2))
@@ -79,13 +85,22 @@ def _run_group(params, names, n_steps=None):
     u = torch.from_numpy(u)
     s = rt.initial_state(params, x0_puck=np.array([m["x0"] for m in metas],
                                                   np.float64), device="cpu")
-    ends = sorted({min(m["n_steps"], T) for m in metas} | {T})
+    ends = sorted({min(m["n_steps"], T) for m in metas} | {T}
+                  | ({EARLY} if T > EARLY else set()))
     parts, at_end, done = [], {}, 0
+    key = (params, tuple(names))
+    if T >= EARLY and key in _EARLY_RUNS:
+        early_parts, early_ends, s = _EARLY_RUNS[key]
+        parts, at_end, done = list(early_parts), dict(early_ends), EARLY
     for end in ends:
+        if end <= done:
+            continue
         s, recs = rt.scripted_rollout(s, u[done:end], params, device="cpu")
         parts.append(recs)
         at_end[end] = s
         done = end
+        if end == EARLY:
+            _EARLY_RUNS[key] = (list(parts), dict(at_end), s)
     recs = rt.LogRecord(*(torch.cat(f) for f in zip(*parts)))
     finals = [at_end[min(m["n_steps"], T)] for m in metas]
     return recs, finals
