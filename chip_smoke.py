@@ -171,11 +171,34 @@ Phases, each failing loudly (nothing here catches an error):
     40 steps, bitwise equal to the mesh-less sweep; (d) ``python -m
     robogame_tpu_torch.distributed_mc`` at 2 Gloo processes on the host
     CPU; (e) ``chunk_steps=100`` over phase 2's workload, bitwise equal to
-    phase 2's run, its ``PhaseTimer`` rate beside phase 2's; (f)
+    phase 2's run, its ``PhaseTimer`` rate beside an unchunked sweep's
+    timed just before it (both after warm-up); (f)
     ``checkpointed_scan`` of K1 at B=8192 stopped at step 16 and resumed
     to 40, bitwise equal to the uninterrupted run, a checkpoint's bytes
     and seconds; (g) ``trace`` around three K1 steps: the trace names
     K1's kernel.
+
+13. the example drivers and the campaign tool, each through its
+    ``main([...])`` in this process on the card, with the kernels'
+    launches of each run: (a) ``examples.matchups``, all six pairings at
+    512 games x 400 steps, its qualitative invariants (the CBF filter cuts
+    the damage of classical and of DMPC vs CMPC, classical scores, DMPC
+    scores against and beats the no-op team) and its records; (b)
+    ``examples.bench_sweep``'s eight rows beside phase 2's K1 rate; (c)
+    ``examples.bench_mpc``'s three modes at their defaults (the latency
+    against the 50 ms budget); (d) the single-game drivers, each log read
+    back with its shape: ``run_collisions`` on the built-in schedule, and
+    in f64 over its first 100 steps on the card and on the CPU (scores
+    equal, positions within 1e-9); ``run_sim``; ``bounce_kick_demo`` off
+    both walls, a goal on the card and on the CPU; ``run_centralized_sim``;
+    ``run_dmpc_sim`` cut from its 2,000 steps to DMPC_SIM_STEPS (the full
+    game is recorded in PERF.md); (e) ``mc_example_1`` and ``_2``: their
+    logs at their defaults, and at 4 games x 40 steps configuration.txt
+    equal to the CPU run's; (f)
+    ``examples.mc_scaling`` at one NCCL process; (g) ``tools.dist_equiv``
+    on the uniform family at reduced games: the sweep engine's scores
+    equal the event engine's in every game, K1's and K6's records beside;
+    (h) ``graft_entry``: ``entry()`` and ``dryrun_multichip(1)`` on NCCL.
 
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6, the draw
@@ -2745,8 +2768,15 @@ def rest_phase(rt, dev, card, u_uni, k1_rate, res_main, pm, schedule):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- (e) chunked, bitwise against phase 2's run ----------------------
+    # an unchunked sweep timed just before the chunked one, both after the
+    # warm-up of phase 2 and its later sweeps, so the two rates compare
+    # like with like
     mc_main = rt.McParams(num_runs=B_MAIN, T=20.0, randomize_x0=True)
     pt = PhaseTimer()
+    with pt.phase("unchunked", items=B_MAIN * N_STEPS):
+        rt.monte_carlo(pm, mc_main, policy=schedule, policy_state=(0, u_uni),
+                       device=dev)
+        torch.cuda.synchronize()
     kernels.reset_launches()
     with pt.phase("chunked", items=B_MAIN * N_STEPS):
         res = rt.monte_carlo(pm, mc_main, policy=schedule,
@@ -2757,10 +2787,12 @@ def rest_phase(rt, dev, card, u_uni, k1_rate, res_main, pm, schedule):
           "(12e) chunk_steps=100 differs from phase 2's sweep")
     check(kernels.launches["exact_export"] >= N_STEPS,
           "(12e) the chunked sweep did not run K1 every step")
+    rates = pt.rates()
     print(f"phase12 (e) chunk_steps=100 over phase 2's workload (B={B_MAIN} "
           f"x {N_STEPS}): == phase 2 bitwise; PhaseTimer "
-          f"{pt.rates()['chunked']:.1f} control-steps/s beside phase 2's "
-          f"{k1_rate:.1f}  [{card}]", flush=True)
+          f"{rates['chunked']:.1f} control-steps/s beside the unchunked "
+          f"sweep's {rates['unchunked']:.1f} just before it (phase 2's first "
+          f"timed sweep: {k1_rate:.1f})  [{card}]", flush=True)
 
     # ---- (f) checkpointed_scan of K1, interrupted and resumed ------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
@@ -2810,6 +2842,243 @@ def rest_phase(rt, dev, card, u_uni, k1_rate, res_main, pm, schedule):
     print(f"phase12 (g) trace of 3 K1 steps: {len(text)} bytes, names "
           f"exact_step_kernel {text.count('exact_step_kernel')} times  "
           f"[{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the example drivers and the campaign tool
+# ---------------------------------------------------------------------------
+
+# run_dmpc_sim's 2,000 steps (about 100 ms a step on the card, host-bound)
+# are cut to these in this phase; PERF.md records the full game
+DMPC_SIM_STEPS = 200
+B_EQUIV, EQUIV_STEPS = 2048, 50     # dist_equiv's reduced uniform family
+
+
+class _Tee:
+    """stdout that also keeps what passes through it."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        self.lines.append(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def run_driver(name, argv, tag, want_rc=0):
+    """``robogame_tpu_torch.<name>.main(argv)`` in this process; returns
+    (its printed lines, seconds, the kernels' launches of the run; of its
+    last pairing for ``matchups``, which counts each pairing itself)."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.examples.matchups import launch_totals
+    mod = importlib.import_module(f"robogame_tpu_torch.{name}")
+    tee = _Tee(sys.stdout)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = mod.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_totals().items() if v}
+    check(rc == want_rc, f"({tag}) {name} {argv}: exit code {rc}")
+    print(f"phase13 {tag} {name} {' '.join(argv)}: {wall:.1f} s, kernel "
+          f"launches {launches}", flush=True)
+    return tee.text().splitlines(), wall, launches
+
+
+def _json_lines(lines):
+    return [json.loads(x) for x in lines if x.startswith("{")]
+
+
+def _log_shape(path, tag, n=None):
+    from robogame_tpu_torch.utils.gamelog import read_log
+    log = read_log(path)
+    check(log.shape[1] == 29 and log.shape[0] >= 1 and (
+        n is None or log.shape[0] == n) and bool(np.isfinite(log).all()),
+          f"({tag}) log {path}: shape {log.shape}")
+    return log
+
+
+def _matchups(tmp, card):
+    """(a): the six pairings at the matchup shape of phases 4, 6 and 7."""
+    path = f"{tmp}/matchups.json"
+    lines, _, _ = run_driver(
+        "examples.matchups", ["--runs", str(B_CL), "--T",
+                              str(round(N_STEPS * 0.05, 9)), "--json", path],
+        "(a)")
+    with open(path) as f:
+        recs = json.load(f)
+    check(lines[-1] == "# qualitative invariants: PASS",
+          f"(13a) matchups: {lines[-1]}")
+    launched = {}
+    for line in lines:
+        m = re.match(r"# (\w+) kernel launches: (\{.*\})$", line)
+        if m:
+            launched[m.group(1)] = json.loads(m.group(2))
+    # K1 twice a step (export and resume); K2 twice a step for the
+    # classical skills and once for the CBF filter; a K3 / K4 launch a DMPC
+    # / CMPC team a step
+    want = {"classical_cbf": {"K2": 5 * N_STEPS},
+            "classical_nocbf": {"K2": 4 * N_STEPS},
+            "cmpc_vs_cmpc": {"K4": 2 * N_STEPS},
+            "dmpc_vs_cmpc": {"K3": N_STEPS, "K4": N_STEPS},
+            "dmpc_vs_cmpc_cbf": {"K3": N_STEPS, "K4": N_STEPS,
+                                 "K2": N_STEPS},
+            "dmpc_vs_noop": {"K3": N_STEPS}}
+    for name, w in want.items():
+        got = launched[name]
+        check(got["K1"] >= 2 * N_STEPS and all(got[k] == v for k, v in
+                                              w.items()),
+              f"(13a) {name}: launches {got}, expected K1 >= {2 * N_STEPS} "
+              f"and {w}")
+        r = recs[name]
+        check(r["games"] == B_CL and math.isfinite(r["damage_mean"]),
+              f"(13a) {name}: {r}")
+    noop = recs["dmpc_vs_noop"]
+    check(noop["wins_a"] > noop["wins_b"], f"(13a) DMPC did not beat the "
+          f"no-op team: {noop}")
+    print(f"phase13 (a) six matchups at {B_CL} x {N_STEPS}: invariants hold; "
+          f"dmpc_vs_cmpc_cbf {json.dumps(recs['dmpc_vs_cmpc_cbf'])}  "
+          f"[{card}]", flush=True)
+
+
+def _single_games(tmp):
+    """(d): the single-game drivers."""
+    from robogame_tpu_torch.examples import run_collisions as rc
+    # run_collisions: the built-in schedule in f32; then its first 100
+    # steps in f64 on the card and on the CPU from schedule files
+    run_driver("examples.run_collisions", ["--log", f"{tmp}/coll.log"],
+               "(d)")
+    _log_shape(f"{tmp}/coll.log", "13d", 200)
+    sched = rc.demo_schedule()[:100]
+    for i, n in enumerate(("A1", "A2", "B1", "B2")):
+        np.savetxt(f"{tmp}/{n}.txt", sched[:, i])
+    logs = []
+    for extra in ([], ["--cpu"]):
+        tag = "cpu" if extra else "card"
+        run_driver("examples.run_collisions",
+                   ["--dir", tmp, "--f64", "--log", f"{tmp}/c64_{tag}.log",
+                    *extra], "(d)")
+        logs.append(_log_shape(f"{tmp}/c64_{tag}.log", "13d", 100))
+    dpos = float(np.abs(logs[0][:, 3:13] - logs[1][:, 3:13]).max())
+    check(np.array_equal(logs[0][:, 1:3], logs[1][:, 1:3]) and dpos <= 1e-9,
+          f"(13d) run_collisions f64: card against CPU, max |dpos| {dpos}")
+    print(f"phase13 (d) run_collisions f64, 100 steps: card == CPU scores, "
+          f"max |dpos| {dpos:.3g}", flush=True)
+
+    run_driver("examples.run_sim", ["--log", f"{tmp}/sim.log"], "(d)")
+    _log_shape(f"{tmp}/sim.log", "13d")
+    for wall_side in ("up", "down"):
+        ends = []
+        for extra in ([], ["--cpu"]):
+            log = f"{tmp}/bounce_{wall_side}{'_cpu' if extra else ''}.log"
+            run_driver("examples.bounce_kick_demo",
+                       ["--wall", wall_side, "--log", log, *extra], "(d)")
+            ends.append(_log_shape(log, "13d")[-1, 1:3])
+        check(np.array_equal(*ends) and ends[0][0] == 1,
+              f"(13d) bounce_kick {wall_side}: final scores {ends}")
+    run_driver("examples.run_centralized_sim", ["--log", f"{tmp}/cmpc.log"],
+               "(d)")
+    _log_shape(f"{tmp}/cmpc.log", "13d", 200)
+    run_driver("examples.run_dmpc_sim", ["--steps", str(DMPC_SIM_STEPS),
+                                         "--log", f"{tmp}/dmpc.log"], "(d)")
+    _log_shape(f"{tmp}/dmpc.log", "13d", DMPC_SIM_STEPS)
+
+
+def _mc_examples(tmp):
+    """(e): mc_example_1 / 2 on the card at their defaults (4 games x 200
+    steps), then on the card and on the CPU at 4 games x 40 steps (the
+    CPU's sweep takes ~8 s a 40 steps)."""
+    import os
+    for name in ("mc_example_1", "mc_example_2"):
+        out = f"{tmp}/{name}"
+        run_driver(f"examples.{name}", ["--out", out], "(e)")
+        for i in range(4):
+            _log_shape(os.path.join(out, f"mc_run_{i + 1}.log"), "13e", 200)
+        texts = []
+        for extra in ([], ["--cpu"]):
+            out = f"{tmp}/{name}_2s{'_cpu' if extra else ''}"
+            run_driver(f"examples.{name}", ["--T", "2", "--out", out,
+                                            *extra], "(e)")
+            with open(os.path.join(out, "configuration.txt")) as f:
+                texts.append(f.read())
+            _log_shape(os.path.join(out, "mc_run_4.log"), "13e", 40)
+        check(texts[0] == texts[1] and len(texts[0].split()) == 13,
+              f"(13e) {name}: configuration.txt {texts}")
+    print("phase13 (e) mc_example_1 / 2: 4 logs of 200 steps each; at 4 x "
+          "40 steps configuration.txt == the CPU run's", flush=True)
+
+
+def drivers_phase(card, k1_rate):
+    """Phase 13: the example drivers, the campaign tool and the harness
+    entry, each through its main([...]) on the card (run_dmpc_sim cut to
+    DMPC_SIM_STEPS of its 2,000 steps)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    try:
+        _matchups(tmp, card)
+
+        # ---- (b) bench_sweep ----------------------------------------------
+        lines, _, launches = run_driver("examples.bench_sweep", [], "(b)")
+        rows = _json_lines(lines)
+        check(len(rows) == 8 and all(r["steps_per_sec"] > 0 for r in rows),
+              f"(13b) bench_sweep rows: {rows}")
+        check(launches.get("K1", 0) > 0 and launches.get("K6", 0) > 0 and
+              launches.get("D", 0) > 0, f"(13b) launches {launches}")
+        print(f"phase13 (b) bench_sweep: 8 rows beside phase 2's K1 rate "
+              f"{k1_rate:.1f} control-steps/s (B={B_MAIN}): "
+              f"{json.dumps(rows)}  [{card}]", flush=True)
+
+        # ---- (c) bench_mpc ------------------------------------------------
+        for argv, want in (([], "K3"), (["--mode", "closed-loop"], "K3"),
+                           (["--mode", "latency"], "K3")):
+            lines, _, launches = run_driver("examples.bench_mpc", argv, "(c)")
+            check(launches.get(want, 0) > 0, f"(13c) {argv}: {launches}")
+            print(f"phase13 (c) {lines[-1]}  [{card}]", flush=True)
+
+        _single_games(tmp)
+        _mc_examples(tmp)
+
+        # ---- (f) mc_scaling at one NCCL process ---------------------------
+        lines, _, _ = run_driver("examples.mc_scaling", [], "(f)")
+        check(any(x.startswith("devices=  1") for x in lines),
+              f"(13f) mc_scaling: {lines}")
+
+        # ---- (g) dist_equiv, uniform family --------------------------------
+        path = f"{tmp}/dist_equiv.json"
+        lines, _, launches = run_driver(
+            "tools.dist_equiv", ["--games", str(B_EQUIV), "--steps",
+                                 str(EQUIV_STEPS), "--families", "uniform",
+                                 "--skip-cap12", "--json", path], "(g)")
+        with open(path) as f:
+            recs = {r["label"]: r for r in json.load(f)["records"]}
+        sw = recs["uniform: sweep50-vs-event50"]
+        check(sw["score_match_rate"] == 1.0,
+              f"(13g) sweep against event on uniform: {sw}")
+        check(launches.get("K1", 0) > 0 and launches.get("K6", 0) > 0,
+              f"(13g) launches {launches}")
+        print(f"phase13 (g) dist_equiv uniform, {B_EQUIV} games x "
+              f"{EQUIV_STEPS} steps: sweep vs event score match "
+              f"{sw['score_match_rate']}; K1 "
+              f"{json.dumps(recs['uniform: exact-vs-event50'])}; K6 "
+              f"{json.dumps(recs['uniform: pallas-vs-sweep'])}  [{card}]",
+              flush=True)
+
+        # ---- (h) graft_entry ----------------------------------------------
+        run_driver("graft_entry", ["--nproc", "1"], "(h)")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase13 drivers: {time.perf_counter() - t_phase:.1f} s  [{card}]",
+          flush=True)
 
 
 def main() -> int:
@@ -3083,6 +3352,7 @@ def main() -> int:
     k_draw = draw_phase(rt, dev, card, u_uni)
     skills_phase(rt, dev, card)
     rest_phase(rt, dev, card, u_uni, rate, res, pm, schedule)
+    drivers_phase(card, rate)
     print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6, k_draw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

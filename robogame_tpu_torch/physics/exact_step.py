@@ -242,18 +242,16 @@ def _detect_plain(gr, base, T: _Tabs):
     G = T.G
     prv = torch.roll(gr, 1, dims=-1)
     tm = (T.kf - 1.0) * c["dtcol"]
-    P, Q = gr[:, T.pi], gr[:, T.po]
-    Pm, Qm = prv[:, T.pi], prv[:, T.po]
-    dxk = Q[:, :, 0] - P[:, :, 0]
-    dyk = Q[:, :, 1] - P[:, :, 1]
-    over = dxk * dxk + dyk * dyk <= T.sig2
-    dxm = Qm[:, :, 0] - Pm[:, :, 0]
-    dym = Qm[:, :, 1] - Pm[:, :, 1]
-    dvx = Qm[:, :, 2] - Pm[:, :, 2]
-    dvy = Qm[:, :, 3] - Pm[:, :, 3]
+    # a pair's differences at column k - 1 are those at column k rolled
+    # one column on, so each is computed once (the same values)
+    D = gr[:, T.po] - gr[:, T.pi]                           # (B, 10, 4, G+1)
+    dxk, dyk = D[:, :, 0], D[:, :, 1]
+    d2 = dxk * dxk + dyk * dyk
+    over = d2 <= T.sig2
+    dxm, dym, dvx, dvy = torch.roll(D, 1, dims=-1).unbind(2)
     b = dxm * dvx + dym * dvy
     dvv = dvx * dvx + dvy * dvy
-    dpp = dxm * dxm + dym * dym
+    dpp = torch.roll(d2, 1, dims=-1)
     disc = b * b - dvv * (dpp - T.sig2)
     ok = over & (b < 0) & (disc >= 0) & (dvv > 0)
     den = torch.where(dvv == 0, 1.0, dvv)
@@ -494,48 +492,63 @@ def exact_step_plain(T: _Tabs, x, u, meta, dmg, noise=None, rnoise=None,
                                xj_b[2], xj_b[3]], dim=1)
 
         # --- sequential feedback re-propagation over columns > base_new
-        role_i = xi_base[:, :, None].repeat(1, 1, G + 1)
-        role_j = xj_base[:, :, None].repeat(1, 1, G + 1)
+        # (the loop's invariants are taken once and the columns' rows
+        # stacked at the end: the same arithmetic in fewer operations)
         ri, rj = xi_base, xj_base
         k0 = int(torch.where(live, base_new, G + 1).min())
         # only the branches some live game takes are computed (the others
         # would be selected away)
         pairs = bool((live & is_pair).any())
         walls = bool((live & ~is_pair).any())
+        fa_i2, fb_i2, fa_j2, fb_j2 = (f[:, None] for f in (fa_i, fb_i, fa_j,
+                                                            fb_j))
+        sp_i, sv_i, sp_j, sv_j = su_i[:, :2], su_i[:, 2:], su_j[:, :2], \
+            su_j[:, 2:]
+        gates = (live[:, None] & (T.k[None, :] > base_new[:, None]))[..., None]
+        gates_j = gates & is_pair[:, None, None]
+        rn_i = None if rn is None else rn[bi, a]
+        rn_j = None if rn is None else rn[bi, e_j]
+        cols_i, cols_j = [], []
         for k in range(k0 + 1, G + 1):
-            pi = torch.cat([ri[:, :2] + fa_i[:, None] * ri[:, 2:]
-                            + su_i[:, :2],
-                            fb_i[:, None] * ri[:, 2:] + su_i[:, 2:]], dim=1)
+            vi = ri[:, 2:]
+            pi = torch.cat([ri[:, :2] + fa_i2 * vi + sp_i, fb_i2 * vi + sv_i],
+                           dim=1)
             if rn is not None:
-                pi = pi + rn[bi, a, :, k]
-            gate = live & (k > base_new)
+                pi = pi + rn_i[:, :, k]
+            p0, p1, p2, p3 = pi.unbind(1)
             if walls:
-                ci_x, ci_y = wall_fix(pi[:, 0], pi[:, 1])
+                ci_x, ci_y = wall_fix(p0, p1)
             if pairs:
-                pj = torch.cat([rj[:, :2] + fa_j[:, None] * rj[:, 2:]
-                                + su_j[:, :2],
-                                fb_j[:, None] * rj[:, 2:] + su_j[:, 2:]],
-                               dim=1)
+                vj = rj[:, 2:]
+                pj = torch.cat([rj[:, :2] + fa_j2 * vj + sp_j,
+                                fb_j2 * vj + sv_j], dim=1)
                 if rn is not None:
-                    pj = pj + rn[bi, e_j, :, k]
-                dx = pj[:, 0] - pi[:, 0]
-                dy = pj[:, 1] - pi[:, 1]
+                    pj = pj + rn_j[:, :, k]
+                q0, q1, q2, q3 = pj.unbind(1)
+                dx = q0 - p0
+                dy = q1 - p1
                 ov = rr - torch.sqrt(dx * dx + dy * dy)
                 go = ov > 0
                 cie = torch.where(go, bri * ov, 0.0)
                 cje = torch.where(go, brj * ov, 0.0)
-                px, py = pi[:, 0] - cie * dx, pi[:, 1] - cie * dy
+                px, py = p0 - cie * dx, p1 - cie * dy
                 ci_x = torch.where(is_pair, px, ci_x) if walls else px
                 ci_y = torch.where(is_pair, py, ci_y) if walls else py
-                rj = torch.where((gate & is_pair)[:, None],
-                                 torch.stack([pj[:, 0] + cje * dx,
-                                              pj[:, 1] + cje * dy,
-                                              pj[:, 2], pj[:, 3]], dim=1), rj)
-                role_j[:, :, k] = rj
-            ri = torch.where(gate[:, None],
-                             torch.stack([ci_x, ci_y, pi[:, 2], pi[:, 3]],
-                                         dim=1), ri)
-            role_i[:, :, k] = ri
+                rj = torch.where(gates_j[:, k],
+                                 torch.stack([q0 + cje * dx, q1 + cje * dy,
+                                              q2, q3], dim=1), rj)
+                cols_j.append(rj)
+            ri = torch.where(gates[:, k],
+                             torch.stack([ci_x, ci_y, p2, p3], dim=1), ri)
+            cols_i.append(ri)
+
+        def role(base, cols):
+            """(B, 4, G+1): ``base`` up to column k0, then ``cols``."""
+            head = base[:, :, None].expand(B, 4, G + 1 - len(cols))
+            return torch.cat([head, torch.stack(cols, 2)], 2) if cols \
+                else head
+
+        role_i, role_j = role(xi_base, cols_i), role(xj_base, cols_j)
         rowm = (T.k[None, :] >= base_new[:, None])[:, None, :]   # (B,1,G+1)
         gr[bi, a] = torch.where(live[:, None, None] & rowm, role_i,
                                 gr[bi, a])

@@ -1,7 +1,9 @@
 """The port's ``ClassicalPlayer`` against the JAX package's: each of the
 seven skills from three fixed game states (tests/test_agents.py:26-60),
 the open-loop playback, and the reference's bank shot through the port's
-``GameSim`` (tests/test_bounce_e2e.py), in f64 on the CPU.
+``GameSim`` (tests/test_bounce_e2e.py), in f64 on the CPU; and, in the
+``timed_kick`` case, that skill in f32 on both sides from one state (the
+drivers' dtype).
 
 The fixed-final-time, bounce and obstacle skills plan in f64 on both sides
 and are held within 1e-6.  The min-time skills (``simple_kick``,
@@ -102,6 +104,26 @@ def test_skill_matches_jax(skill):
             assert pa == pytest.approx(pb)
             assert a.is_idle() == b.is_idle()
     assert planned >= 2, f"{skill} planned in {planned} of 3 states"
+    if skill == "timed_kick":
+        _timed_kick_f32_matches_jax()
+
+
+def _timed_kick_f32_matches_jax():
+    """``timed_kick`` in f32 (the dtype the example drivers run) on both
+    sides from the second state: the flag, the length, and the installed
+    controls within the min-time skills' 2e-3 + 1e-2 |u| (an f32 probe of
+    20 random states read at most 8.3e-4)."""
+    jp, tp = JParams(dtype="float32"), rt.SimParams(dtype="float32")
+    (field, team, pid), vec32 = WHO[1], STATES[1].astype(np.float32)
+    a = JPlayer(jp, field, team, pid)
+    b = rt.ClassicalPlayer(tp, field, team, pid, device="cpu")
+    assert a.timed_kick(JView(jnp.asarray(vec32)), 4.0, 1.0)
+    assert b.timed_kick(rt.SimStateView(vec32), 4.0, 1.0)
+    assert int(a.state.length) == int(b.state.length)
+    assert b.state.u_traj.dtype == torch.float32
+    np.testing.assert_allclose(b.state.u_traj.numpy(),
+                               np.asarray(a.state.u_traj), rtol=1e-2,
+                               atol=2e-3)
 
 
 def test_simple_kick_plays_back_then_idles():
