@@ -200,6 +200,21 @@ Phases, each failing loudly (nothing here catches an error):
     equal the event engine's in every game, K1's and K6's records beside;
     (h) ``graft_entry``: ``entry()`` and ``dryrun_multichip(1)`` on NCCL.
 
+14. ES training and the K1 tools, each through its ``main([...])`` on the
+    card with its kernels' launches: (a) ``examples.train_es --engine
+    pallas`` at its defaults (30 generations of 512 candidates x 100
+    steps on K6): the trained policy's mean reward above generation 0's;
+    ``evaluate`` on K6, 64 candidates x 20 steps, card against CPU from
+    the same starts and parameters (goals equal, rewards within
+    ES_REWARD_TOL but for at most ES_KNIFE_EDGES candidates); (a') the
+    same on the sweep engine, cut to ES_SWEEP_GENS generations (host-bound,
+    about 35 ms a step); (b) ``tools.bench_grind`` at its defaults on K1
+    one-phase, K1 two-phase and K6, at least CORNER_AT_CAP of the corner
+    games reaching K1's cap (meta row 3); (c) ``tools.bench_sol`` at
+    B=2048: K1's time monotone in the cap, its slope above 0, beside
+    phase 3's K1 time; (d) ``tools.reconcile_bias`` phases cpu, gpu and
+    compare cut to RECON_GAMES x RECON_STEPS: three finite records.
+
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6, the draw
 kernel; K1's and
@@ -2872,7 +2887,7 @@ class _Tee:
         return "".join(self.lines)
 
 
-def run_driver(name, argv, tag, want_rc=0):
+def run_driver(name, argv, tag, want_rc=0, phase=13):
     """``robogame_tpu_torch.<name>.main(argv)`` in this process; returns
     (its printed lines, seconds, the kernels' launches of the run; of its
     last pairing for ``matchups``, which counts each pairing itself)."""
@@ -2888,8 +2903,8 @@ def run_driver(name, argv, tag, want_rc=0):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in launch_totals().items() if v}
     check(rc == want_rc, f"({tag}) {name} {argv}: exit code {rc}")
-    print(f"phase13 {tag} {name} {' '.join(argv)}: {wall:.1f} s, kernel "
-          f"launches {launches}", flush=True)
+    print(f"phase{phase} {tag} {name} {' '.join(argv)}: {wall:.1f} s, "
+          f"kernel launches {launches}", flush=True)
     return tee.text().splitlines(), wall, launches
 
 
@@ -3079,6 +3094,161 @@ def drivers_phase(card, k1_rate):
         shutil.rmtree(tmp)
     print(f"phase13 drivers: {time.perf_counter() - t_phase:.1f} s  [{card}]",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: ES training, the K1 tools and the bias reconciliation
+# ---------------------------------------------------------------------------
+
+# train_es on the sweep engine (host-bound, about 30-40 ms a step) is cut
+# from its 30 generations to these
+ES_SWEEP_GENS = 3
+# evaluate on the card against the CPU: candidates x steps, the rewards'
+# tolerance and the candidates allowed beyond it (knife edges: the
+# policy's products round differently on the two devices)
+ES_CHECK_POP, ES_CHECK_STEPS = 64, 20
+ES_REWARD_TOL, ES_KNIFE_EDGES = 1e-3, 2
+# the share of bench_grind's corner games whose K1 loop reaches the cap in
+# a timed run (one-phase, B=2048 x 40 steps: 0.985 on the H100)
+CORNER_AT_CAP = 0.95
+# reconcile_bias cut from 4,096 games x 100 steps
+RECON_GAMES, RECON_STEPS = 512, 30
+
+
+def _es_card_against_cpu(card):
+    """(a): ``evaluate`` on K6 on the card against the CPU (K6's plain
+    version) from the same starts and parameters."""
+    from robogame_tpu_torch.config import SimParams
+    from robogame_tpu_torch.examples import train_es as es
+    params = SimParams(dt=0.05, winning_score=100, engine="pallas",
+                       dtype="float32")
+    x0 = es.puck_starts(ES_CHECK_POP, torch.Generator().manual_seed(14),
+                        "cpu")
+    rng = np.random.default_rng(14)
+    theta = (rng.normal(0, 0.1, es.n_params())[None]
+             + 0.05 * rng.normal(size=(ES_CHECK_POP, es.n_params())))
+    out = {}
+    for d in ("cuda", "cpu"):
+        r, g = es.make_eval(params, ES_CHECK_STEPS, ES_CHECK_POP, d)(
+            es.theta_from_numpy(theta, device=d), x0_puck=x0.to(d))
+        out[d] = (r.cpu(), g.cpu())
+    dr = (out["cuda"][0] - out["cpu"][0]).abs()
+    off = int((dr > ES_REWARD_TOL).sum())
+    check(torch.equal(out["cuda"][1], out["cpu"][1]),
+          "(14a) evaluate: goals on the card differ from the CPU's")
+    check(off <= ES_KNIFE_EDGES, f"(14a) evaluate: {off} candidates' "
+          f"rewards beyond {ES_REWARD_TOL} of the CPU's (max {dr.max()})")
+    print(f"phase14 (a) evaluate on K6, {ES_CHECK_POP} candidates x "
+          f"{ES_CHECK_STEPS} steps, card against CPU: goals equal, max "
+          f"|dreward| {float(dr.max()):.3g}, {off} beyond {ES_REWARD_TOL}  "
+          f"[{card}]", flush=True)
+
+
+def es_tools_phase(card, k1):
+    """Phase 14: ``examples.train_es`` and ``tools.bench_grind``,
+    ``bench_sol``, ``reconcile_bias`` through their main([...]) on the
+    card (train_es on the sweep engine cut to ES_SWEEP_GENS generations,
+    reconcile_bias to RECON_GAMES x RECON_STEPS)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_es_")
+    try:
+        # ---- (a) train_es on K6 at its defaults ---------------------------
+        num = r"(-?\d+\.\d+)"
+        for argv, tag, kern in ((["--engine", "pallas"], "(a)", "K6"),
+                                (["--engine", "sweep", "--gens",
+                                  str(ES_SWEEP_GENS)], "(a')", None)):
+            lines, wall, launches = run_driver("examples.train_es", argv,
+                                               tag, phase=14)
+            first = float(re.search(rf"gen +0  reward +{num}",
+                                    lines[0]).group(1))
+            trained = float(re.search(rf"trained policy: mean reward {num}",
+                                      lines[-1]).group(1))
+            check(trained > first, f"(14{tag[1:-1]}) train_es {argv}: the "
+                  f"trained policy's reward {trained} not above gen 0's "
+                  f"{first}")
+            check(launches.get("K6", 0) > 0 if kern else not launches,
+                  f"(14{tag[1:-1]}) train_es {argv}: launches {launches}")
+            print(f"phase14 {tag} train_es {' '.join(argv)}: gen 0 reward "
+                  f"{first}, trained {trained}, {wall:.1f} s  [{card}]",
+                  flush=True)
+            if kern:
+                _es_card_against_cpu(card)
+
+        # ---- (b) bench_grind: K1 one- and two-phase, K6 -------------------
+        for argv, want in (([], "K1"), (["--two-phase"], "K1"),
+                           (["--engine", "pallas"], "K6")):
+            lines, _, launches = run_driver("tools.bench_grind", argv, "(b)",
+                                            phase=14)
+            rows = [x for x in lines if re.match(r"(corner|uniform) ", x)]
+            check(len(rows) == 2 and launches.get(want, 0) > 0 and (
+                want == "K1" or not launches.get("K1")),
+                  f"(14b) bench_grind {argv}: rows {rows}, launches "
+                  f"{launches}")
+            if not argv:
+                games = float(re.search(r"cap_games=([\d.]+)",
+                                        rows[0]).group(1))
+                check(rows[0].startswith("corner") and
+                      games >= CORNER_AT_CAP,
+                      f"(14b) fewer than {CORNER_AT_CAP} of the corner games "
+                      f"reached K1's cap: {rows[0]}")
+            for x in rows:
+                print(f"phase14 (b) {x}  [{card}]", flush=True)
+
+        # ---- (c) bench_sol at B=2048 ---------------------------------------
+        lines, _, launches = run_driver("tools.bench_sol", [], "(c)",
+                                        phase=14)
+        caps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+                for m in (re.match(r"cap= *(\d+)  step= *([\d.]+) ms .* "
+                                   r"kernel=([\d.]+) ms", x) for x in lines)
+                if m]
+        fits = [re.search(rf"^{what}slope: {num} us/iteration \(batch\) = "
+                          rf"{num} ns/game-iteration; intercept \(populate"
+                          rf"\+detect\+I/O\): {num} ms$", "\n".join(lines),
+                          re.MULTILINE) for what in ("", "kernel ")]
+        check(len(caps) == 4 and None not in fits and
+              launches.get("K1", 0) > 0,
+              f"(14c) bench_sol: {lines}, launches {launches}")
+        tk = [t for _, _, t in caps]
+        check(all(b >= 0.95 * a for a, b in zip(tk, tk[1:])),
+              f"(14c) bench_sol: K1's time not monotone in the cap: {caps}")
+        step_fit, kern_fit = (tuple(map(float, m.groups())) for m in fits)
+        check(kern_fit[0] > 0, f"(14c) bench_sol: kernel slope {kern_fit}")
+        print(f"phase14 (c) K1 at B=2048 on corner grinders, kernel alone: "
+              f"{kern_fit[0]} us an iteration of the batch, {kern_fit[1]} ns "
+              f"a game-iteration, intercept {kern_fit[2]} ms (a step from "
+              f"the host: {step_fit[0]} us, {step_fit[1]} ns, "
+              f"{step_fit[2]} ms); phase 3's K1 step at B={B_MAIN} "
+              f"(uniform, two-phase): {k1['ms']:.4f} ms (export "
+              f"{k1['export_ms']:.4f} + resume {k1['resume_ms']:.4f}); "
+              f"{lines[-1]}  [{card}]", flush=True)
+
+        # ---- (d) reconcile_bias, cut --------------------------------------
+        base = ["--games", str(RECON_GAMES), "--steps", str(RECON_STEPS),
+                "--cache", f"{tmp}/recon"]
+        path = f"{tmp}/recon.json"
+        for phase in ("cpu", "gpu", "compare"):
+            argv = ["--phase", phase, *base]
+            if phase == "compare":
+                argv += ["--json", path]
+            _, _, launches = run_driver("tools.reconcile_bias", argv, "(d)",
+                                        phase=14)
+            if phase == "gpu":
+                check(launches.get("K1", 0) > 0,
+                      f"(14d) reconcile_bias gpu: launches {launches}")
+        with open(path) as f:
+            recs = json.load(f)["records"]
+        check(len(recs) == 3 and all(
+            r["games"] == RECON_GAMES and all(math.isfinite(v) for v in (
+                *r["damage_mean"], r["damage_z"], r["damage_rel_diff"]))
+            for r in recs), f"(14d) reconcile_bias records: {recs}")
+        for r in recs:
+            print(f"phase14 (d) {json.dumps(r)}  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase14 ES and the K1 tools: {time.perf_counter() - t_phase:.1f}"
+          f" s  [{card}]", flush=True)
 
 
 def main() -> int:
@@ -3353,6 +3523,7 @@ def main() -> int:
     skills_phase(rt, dev, card)
     rest_phase(rt, dev, card, u_uni, rate, res, pm, schedule)
     drivers_phase(card, rate)
+    es_tools_phase(card, kern)
     print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6, k_draw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,8 @@ bench_sweep            the physics sweep's control-steps/s at B 256, 2048,
 bench_mpc              DMPC solves/s, closed-loop games/s, one game's
                        per-step latency
 mc_scaling             a sweep over 1, 2, 4 ... processes of a mesh
+train_es               evolution strategies training an attacker policy,
+                       every candidate on its own game of one batch
 =====================  ==================================================
 
 Every driver has a ``main(argv=None)`` that returns the exit code, runs on
@@ -32,6 +34,7 @@ non-zero.  They import nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -56,6 +59,27 @@ def driver_device(args, prog: str) -> torch.device:
 def host(a):
     """A numpy copy of a tensor on any device."""
     return a.detach().cpu().numpy()
+
+
+def time_call(fn, dev: torch.device):
+    """(seconds, ``fn()``): CUDA events around the call on the card, the
+    host clock on the CPU; the region ends with a host fetch of the
+    result's first tensor (of a GameState, x)."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        ev1.record()
+    first = out
+    while isinstance(first, (tuple, list)):
+        first = first[0]
+    float(host(first).sum())
+    if cuda:
+        return ev0.elapsed_time(ev1) / 1e3, out
+    return time.perf_counter() - t0, out
 
 
 def sync(dev: torch.device) -> None:

@@ -21,14 +21,13 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import torch
 
 from ..config import SimParams
 from ..parallel.monte_carlo import McParams, _initial_states
 from ..physics.step import step_batch
-from . import add_cpu_flag, driver_device, host
+from . import add_cpu_flag, driver_device, host, time_call
 
 PROG = "python -m robogame_tpu_torch.examples.bench_sweep"
 REFERENCE_STEPS_PER_SEC = 18_000.0  # compiled C++ reference, 1 CPU core
@@ -79,23 +78,13 @@ def time_run(run, states, u_base, reps: int = 2, groups: int = 3) -> float:
     the same 400-step games as the headline workload.)"""
     s = run(states, u_base)
     host(s.score)                           # warm-up
-    cuda = s.score.is_cuda
-    best = float("inf")
-    for _ in range(groups):
-        if cuda:
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(2))
-            ev0.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            s = run(states, u_base)
-        if cuda:
-            ev1.record()
-        host(s.score)
-        wall = (ev0.elapsed_time(ev1) / 1e3 if cuda
-                else time.perf_counter() - t0)
-        best = min(best, wall / reps)
-    return best
+
+    def group():
+        for _ in range(reps - 1):
+            run(states, u_base)
+        return run(states, u_base)
+    return min(time_call(group, s.score.device)[0] / reps
+               for _ in range(groups))
 
 
 def row(engine: str, b: int, n_steps: int, stochastic: bool, dev) -> dict:

@@ -93,6 +93,18 @@ class Final:
         self.x, self.score, self.damage = x, score, damage
 
 
+def dump_final(path, f: Final) -> None:
+    """Save a rollout's final arrays as ``.npz`` (keys x, score, damage),
+    the JAX tool's format: a dump of either package loads in the other."""
+    np.savez(path, x=f.x, score=f.score, damage=f.damage)
+
+
+def load_final(path) -> Final:
+    """A :func:`dump_final` file (or the JAX tool's) as a :class:`Final`."""
+    with np.load(path) as z:
+        return Final(z["x"], z["score"], z["damage"])
+
+
 def rollout(engine: str, states: GameState, sched, params_base: SimParams,
             sweep_iters: int | None = None, stochastic: bool = False):
     """Step ``states`` through ``sched`` on ``engine``; (the final states

@@ -55,7 +55,9 @@ DRIVERS = ["examples.run_collisions", "examples.run_sim",
            "examples.run_centralized_sim", "examples.visualize_game",
            "examples.mc_example_1", "examples.mc_example_2",
            "examples.matchups", "examples.bench_sweep", "examples.bench_mpc",
-           "examples.mc_scaling", "tools.dist_equiv", "graft_entry"]
+           "examples.mc_scaling", "examples.train_es", "tools.dist_equiv",
+           "tools.bench_grind", "tools.bench_sol", "tools.reconcile_bias",
+           "graft_entry"]
 
 
 @pytest.fixture(autouse=True, scope="module")
