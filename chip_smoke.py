@@ -215,6 +215,18 @@ Phases, each failing loudly (nothing here catches an error):
     phase 3's K1 time; (d) ``tools.reconcile_bias`` phases cpu, gpu and
     compare cut to RECON_GAMES x RECON_STEPS: three finite records.
 
+15. the activity-sorted rollout (``rollout_pallas_sorted``, the batch
+    ordered by each game's activity from ``step_batch(...,
+    with_activity=True)``): (a) at SORT_B games x SORT_STEPS corner steps,
+    bitwise equal to the step-by-step rollout in x, score, damage, t and
+    key on K1 one- and two-phase, K6 and stochastic K1, at resort_every 1
+    and 4, with its kernel launches counted; two-phase activity bitwise
+    one-phase on K1 and K6; (b) K1's and K6's blocks an SM (the occupancy
+    calculator), their registers and the games resident on the card; (c)
+    ms a step sorted against unsorted and the kernel's ms a step (CUDA
+    events around each launch), on K1 one- and two-phase and K6, corner
+    and uniform schedules, at each of SORT_TIME_B.
+
 The kernels' times go out as one JSON line ``{"kernels": [...]}`` (K1,
 K2 at the skills shape, K2 at the CBF shape, K3, K4, K5, K6, the draw
 kernel; K1's and
@@ -3251,6 +3263,224 @@ def es_tools_phase(card, k1):
           f" s  [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the activity-sorted rollout on K1 and K6
+# ---------------------------------------------------------------------------
+
+# (a): the games, steps and schedule seed of the bitwise checks; (c): the
+# batches timed, the warm-up steps and the timed steps after them, and the
+# longer warm-up of the deep-grinding corner rows (bench_grind's timed runs
+# start from 40 steps in, where about a fifth of the game-steps reach K1's
+# cap)
+SORT_B, SORT_STEPS, SORT_SEED = 8192, 40, 15
+SORT_TIME_B = (8192, 32768)
+SORT_WARM, SORT_TIMED, SORT_DEEP = 10, 30, 40
+
+
+def _sched(family, B, n, dev):
+    from robogame_tpu_torch.tools.dist_equiv import make_sched
+    return torch.from_numpy(make_sched(family, B, n, seed=SORT_SEED)).to(dev)
+
+
+def _step_by_step(rt, s, us, params, dev):
+    """The unsorted rollout and each step's activity (n_steps, B)."""
+    acts = []
+    for u in us:
+        s, a = rt.step_batch(s, u, params, device=dev, with_activity=True)
+        acts.append(a)
+    return s, torch.stack(acts)
+
+
+def _at_cap(acts, params):
+    """The loop cap of the params' kernel engine and the share of the
+    game-steps whose activity reached it."""
+    cap = (params.collision_counter_lim - 1 if params.engine == "pallas_exact"
+           else params.sweep_iters)
+    return cap, float((acts >= cap).float().mean())
+
+
+@contextlib.contextmanager
+def _launch_events(kernels, name):
+    """CUDA events recorded around every launch through ``kernels.<name>``
+    while the block runs; yields the list of (start, end) pairs."""
+    orig = getattr(kernels, name)
+    pairs = []
+
+    def timed(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = orig(*a, **kw)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    setattr(kernels, name, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(kernels, name, orig)
+
+
+def _wall_ms(fn, steps):
+    """ms a step of ``fn`` on the host clock, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, out
+
+
+def sorted_phase(rt, dev, card):
+    """Phase 15: ``rollout_pallas_sorted`` and ``step_batch(...,
+    with_activity=True)`` on K1 and K6: (a) the sorted rollout bitwise
+    the step-by-step one, and two-phase activity bitwise one-phase; (b)
+    K1's and K6's blocks an SM; (c) ms a step and the kernel's ms, sorted
+    against unsorted."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.tools.dist_equiv import make_states
+    t_phase = time.perf_counter()
+    k1 = rt.SimParams(engine="pallas_exact", two_phase=False)
+    k6 = rt.SimParams(engine="pallas", two_phase=False)
+    fields = ("x", "score", "damage", "t", "key")
+
+    # ---- (a) sorted == step by step, bitwise --------------------------------
+    us = _sched("corner", SORT_B, SORT_STEPS, dev)
+    acts = {}
+    for tag, params in (("K1 one-phase", k1),
+                        ("K1 two-phase", k1.replace(two_phase=True)),
+                        ("K6 one-phase", k6),
+                        ("K6 two-phase", k6.replace(two_phase=True)),
+                        ("K1 stochastic", k1.replace(stochastic=True,
+                                                     noise=1.0))):
+        s0 = make_states(SORT_B, params, dev)
+        ref, acts[tag] = _step_by_step(rt, s0, us, params, dev)
+        if tag == "K6 two-phase":       # (its activity only)
+            continue
+        for every in (1, 4):
+            kernels.reset_launches()
+            got = rt.rollout_pallas_sorted(s0, us, params,
+                                           resort_every=every, device=dev)
+            torch.cuda.synchronize()
+            k1_n, k6_n = dict(kernels.launches), dict(
+                kernels.parallel_launches)
+            n = SORT_STEPS
+            want = ({"full": n} if params.engine == "pallas" else
+                    {"exact_export": n, "exact_resume": n}
+                    if params.two_phase else {"exact": n})
+            seen = {m: c for m, c in {**k1_n, **k6_n}.items() if c}
+            check(seen == want, f"(15a) {tag} resort_every={every}: "
+                  f"launches {seen}, expected {want}")
+            if params.stochastic:
+                check(kernels.noise_launches[0] == n and
+                      kernels.noise_launches[1] == n,
+                      f"(15a) {tag}: draw launches "
+                      f"{kernels.noise_launches}")
+            off = [f for f in fields
+                   if not torch.equal(getattr(got, f), getattr(ref, f))]
+            check(not off, f"(15a) {tag} resort_every={every}: the sorted "
+                  f"rollout differs from the step-by-step one in {off}")
+            a = acts[tag]
+            cap, at_cap = _at_cap(a, params)
+            print(f"phase15 (a) {tag} B={SORT_B} x {SORT_STEPS} corner, "
+                  f"resort_every={every}: sorted == step by step bitwise "
+                  f"({', '.join(fields)}); launches {seen}; activity a "
+                  f"game-step {float(a.mean()):.3f}, at the cap ({cap}) "
+                  f"{at_cap:.4f} of game-steps  [{card}]", flush=True)
+    for one, two in (("K1 one-phase", "K1 two-phase"),
+                     ("K6 one-phase", "K6 two-phase")):
+        check(torch.equal(acts[one], acts[two]),
+              f"(15a) {two}'s activity differs from one-phase's")
+        check(bool((acts[one] > 0).any()) and bool(
+            (acts[one].sum(0) != acts[one].sum(0)[0]).any()),
+              f"(15a) {one}: no spread of activity to sort by")
+        print(f"phase15 (a) {two} activity == one-phase bitwise "
+              f"({SORT_STEPS} steps x {SORT_B} games)", flush=True)
+
+    # ---- (b) occupancy ------------------------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K1c = k1.grid_points + 1
+    for name, tag in (("exact_step", "K1"), ("parallel_step", "K6")):
+        for stoch in (False, True):
+            occ = kernels.step_occupancy(name, K1c, stoch)
+            check(occ["blocks_per_sm"] >= 1, f"(15b) {tag}: {occ}")
+            kind = "stochastic" if stoch else "deterministic"
+            print(f"phase15 (b) {tag} {kind}: {occ['blocks_per_sm']} "
+                  f"blocks an SM of "
+                  f"{kernels.STEP_WPB} games ({occ['games_per_sm']} games, "
+                  f"{occ['smem_bytes']} B of shared memory a block, "
+                  f"{occ['registers']} registers a thread); "
+                  f"{occ['games_per_sm'] * sms} games resident on {sms} SMs"
+                  f"  [{card}]", flush=True)
+
+    # ---- (c) ms a step, sorted against unsorted -----------------------------
+    rows = []
+    for tag, params, launch in (
+            ("K1 one-phase", k1, "exact_step"),
+            ("K1 two-phase", k1.replace(two_phase=True), "exact_step"),
+            ("K6 one-phase", k6, "parallel_step")):
+        for family, warm in (("corner", SORT_WARM), ("uniform", SORT_WARM),
+                             ("corner", SORT_DEEP)):
+            for B in SORT_TIME_B:
+                us = _sched(family, B, warm + SORT_TIMED, dev)
+                s = make_states(B, params, dev)
+                for u in us[:warm]:
+                    s = rt.step_batch(s, u, params, device=dev)
+                uw = us[warm:]
+
+                def plain_run(s=s, uw=uw, params=params):
+                    for u in uw:
+                        s = rt.step_batch(s, u, params, device=dev)
+                    return s
+
+                def sorted_run(s=s, uw=uw, params=params):
+                    return rt.rollout_pallas_sorted(s, uw, params,
+                                                    device=dev)
+
+                walls = {}
+                for which, fn in (("unsorted", plain_run),
+                                  ("sorted", sorted_run),
+                                  ("sorted", sorted_run),
+                                  ("unsorted", plain_run)):
+                    ms, out = _wall_ms(fn, SORT_TIMED)
+                    walls.setdefault(which, []).append(ms)
+                    walls[which + "_out"] = out
+                check(all(torch.equal(getattr(walls["sorted_out"], f),
+                                      getattr(walls["unsorted_out"], f))
+                          for f in fields),
+                      f"(15c) {tag} {family} B={B}: sorted != unsorted")
+                kern = {}
+                for which, fn in (("unsorted", plain_run),
+                                  ("sorted", sorted_run)):
+                    with _launch_events(kernels, launch) as pairs:
+                        fn()
+                    torch.cuda.synchronize()
+                    kern[which] = (sum(a.elapsed_time(b) for a, b in pairs),
+                                   len(pairs))
+                _, at_cap = _at_cap(
+                    _step_by_step(rt, s, uw, params, dev)[1], params)
+                row = {"engine": tag, "family": family, "warm": warm, "B": B,
+                       "at_cap": at_cap,
+                       "step_ms_unsorted": walls["unsorted"],
+                       "step_ms_sorted": walls["sorted"],
+                       "kernel_ms_step_unsorted":
+                           kern["unsorted"][0] / SORT_TIMED,
+                       "kernel_ms_step_sorted": kern["sorted"][0] / SORT_TIMED,
+                       "launches": kern["sorted"][1]}
+                rows.append(row)
+                wu, ws = walls["unsorted"], walls["sorted"]
+                print(f"phase15 (c) {tag} {family} B={B}, steps {warm}-"
+                      f"{warm + SORT_TIMED} ({at_cap:.4f} of game-steps at "
+                      f"the cap): a step unsorted {wu[0]:.4f} / {wu[1]:.4f} "
+                      f"ms, sorted {ws[0]:.4f} / {ws[1]:.4f} ms; the kernel a"
+                      f" step unsorted {row['kernel_ms_step_unsorted']:.4f} "
+                      f"ms, sorted {row['kernel_ms_step_sorted']:.4f} ms "
+                      f"({kern['sorted'][1]} launches)  [{card}]",
+                      flush=True)
+    print(f"phase15 rows {json.dumps(rows)}", flush=True)
+    print(f"phase15 the sorted rollout: {time.perf_counter() - t_phase:.1f}"
+          f" s  [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3524,6 +3754,7 @@ def main() -> int:
     rest_phase(rt, dev, card, u_uni, rate, res, pm, schedule)
     drivers_phase(card, rate)
     es_tools_phase(card, kern)
+    sorted_phase(rt, dev, card)
     print(json.dumps({"kernels": [kern, *k2, k3, *k45, k6, k_draw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,7 +74,7 @@ from .parallel.monte_carlo import McParams, McResult, aggregate, monte_carlo
 from .physics.parallel_step import parallel_step_plain
 from .physics.rollout import (LogRecord, batch_rollout, log_record, rollout,
                               scripted_rollout)
-from .physics.step import step, step_batch
+from .physics.step import rollout_pallas_sorted, step, step_batch
 from .physics.sweep import step_sweep
 from .sim import GameSim
 from .state import (GameState, SimStateView, from_numpy, from_vector,
@@ -93,8 +93,9 @@ __all__ = [
     "from_numpy", "from_vector", "initial_cmpc_state", "initial_state",
     "initial_team_state", "log_record", "min_time_traj",
     "min_time_traj_batch", "monte_carlo", "parallel_step_plain",
-    "resolve_device", "rollout", "safe_control", "safe_control_batch",
-    "scripted_rollout", "solve_cmpc_sqp_lanes", "solve_cmpc_sqp_plain",
+    "resolve_device", "rollout", "rollout_pallas_sorted", "safe_control",
+    "safe_control_batch", "scripted_rollout", "solve_cmpc_sqp_lanes",
+    "solve_cmpc_sqp_plain",
     "solve_dmpc_sqp_lanes", "solve_dmpc_sqp_plain", "solve_qp",
     "solve_qp_lanes", "solve_qp_lanes_joint", "solve_qp_lanes_joint_plain",
     "step", "step_batch", "step_sweep", "team_policy", "team_policy_batch",

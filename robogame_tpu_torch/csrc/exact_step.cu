@@ -418,6 +418,12 @@ exact_step_kernel(const Consts K, const float* __restrict__ M6,
   planes_out(smem, g, B, K1, b0, nb);
 }
 
+// A block's dynamic shared memory: WPB grids, and in stochastic mode WPB
+// re-propagation noise planes.
+int smem_bytes(int K1, bool stochastic) {
+  return (stochastic ? 2 : 1) * WPB * NC * K1 * (int)sizeof(float);
+}
+
 }  // namespace
 
 // Launches K1 on `stream` and returns the CUDA error of the launch (0 when
@@ -437,8 +443,7 @@ extern "C" int rg_exact_step(const float* consts, const float* M6,
   Consts K;
   memcpy(&K, consts, sizeof(K));
   cudaStream_t st = (cudaStream_t)stream;
-  const int bytes =
-      (rnoise == nullptr ? 1 : 2) * WPB * NC * K1 * (int)sizeof(float);
+  const int bytes = smem_bytes(K1, rnoise != nullptr);
   const cudaError_t err = cudaFuncSetAttribute(
       exact_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -447,4 +452,24 @@ extern "C" int rg_exact_step(const float* consts, const float* M6,
       K, M6, x, u, meta, dmgin, noise, rnoise, g, carry_in, xout, aux,
       carry_out, B, K1, mode, cap);
   return (int)cudaGetLastError();
+}
+
+// The blocks (WPB games each) an SM runs of K1 at K1 grid columns,
+// deterministic or stochastic (the card's occupancy calculator at the
+// launch's dynamic shared memory), into out[0], that shared memory a
+// block into out[1] and the registers a thread into out[2].  Returns the
+// CUDA error (0 on success).
+extern "C" int rg_exact_step_occupancy(int K1, int stochastic, int* out) {
+  const int bytes = smem_bytes(K1, stochastic != 0);
+  out[0] = 0;
+  out[1] = bytes;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, exact_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[2] = attr.numRegs;
+  err = cudaFuncSetAttribute(
+      exact_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], exact_step_kernel, WARP * WPB, bytes);
 }

@@ -528,3 +528,26 @@ extern "C" int rg_parallel_step(const float* consts, const float* M6,
       carry_out, B, K1, mode, cap);
   return (int)cudaGetLastError();
 }
+
+// The blocks (WPB games each) an SM runs of K6 at K1 grid columns (the
+// card's occupancy calculator at the launch's dynamic shared memory), into
+// out[0], that shared memory a block into out[1] and the registers a
+// thread into out[2].  `stochastic` is K1's argument and changes nothing
+// here: the populate noise is staged in the grid itself, so a block holds
+// WPB grids either way.  Returns the CUDA error (0 on success).
+extern "C" int rg_parallel_step_occupancy(int K1, int stochastic, int* out) {
+  (void)stochastic;
+  const int bytes = WPB * NC * K1 * (int)sizeof(float);
+  out[0] = 0;
+  out[1] = bytes;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, parallel_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[2] = attr.numRegs;
+  err = cudaFuncSetAttribute(
+      parallel_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], parallel_step_kernel, WARP * WPB, bytes);
+}

@@ -48,7 +48,9 @@ solution, ``profile_sqp.py``).
 an SM it runs (one a block; the card's occupancy calculator) and its
 shared bytes a problem, ``qp_joint_occupancy(n1, m_own, m_pair)`` the same
 of K5; ``qp_grouped_occupancy()`` asks the same of K2's grouped
-iterations (80 problems a block).
+iterations (80 problems a block); ``step_occupancy(name, K1, stochastic)``
+asks K1's (``exact_step``) or K6's (``parallel_step``) library for the
+blocks of WPB = 4 games an SM runs at K1 grid columns.
 
 Launch counters, added to only by the launch paths below: ``launches``
 holds K1's per mode, ``qp_launches`` K2's per-problem launches per (n, m)
@@ -223,6 +225,8 @@ _EXTRA = {
                    ("rg_qp_grouped_occupancy", [_P])],
     "qp_joint": [("rg_qp_joint_occupancy", [_I] * 3 + [_P])],
     "game_noise": [("rg_game_words", [_P] * 2 + [_I] * 4 + [_P])],
+    "exact_step": [("rg_exact_step_occupancy", [_I] * 2 + [_P])],
+    "parallel_step": [("rg_parallel_step_occupancy", [_I] * 2 + [_P])],
 }
 
 
@@ -252,6 +256,28 @@ def occupancy(name: str, N: int, n_obs: int) -> dict:
     if err != 0:
         raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
     return {"problems_per_sm": out[0], "smem_bytes": out[1]}
+
+
+# games (warps) a block of K1 and K6 (csrc/step_common.cuh)
+STEP_WPB = 4
+
+
+def step_occupancy(name: str, K1: int, stochastic: bool = False) -> dict:
+    """The blocks an SM that K1 (``exact_step``) or K6 (``parallel_step``)
+    runs at K1 grid columns on the current card (the occupancy calculator
+    at the launch's dynamic shared memory; stochastic K1 stages its
+    re-propagation noise there too), the games that makes an SM, the
+    shared bytes a block and the registers a thread."""
+    if name not in ("exact_step", "parallel_step"):
+        raise ValueError(f"step_occupancy: exact_step or parallel_step, not "
+                         f"{name!r}")
+    out = (ctypes.c_int * 3)()
+    err = getattr(_library(name), f"rg_{name}_occupancy")(
+        int(K1), int(bool(stochastic)), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
+    return {"blocks_per_sm": out[0], "games_per_sm": out[0] * STEP_WPB,
+            "smem_bytes": out[1], "registers": out[2]}
 
 
 def _ptr(t):

@@ -122,6 +122,13 @@ def solve_qp(H, g, A, l, u, iters: int = 50, rho: float = 1.0,
     return QpSolution(x=x, converged=conv, prim_res=prim, dual_res=dual)
 
 
+def solve_qp_batch(H, g, A, l, u, iters: int = 50, **kw) -> QpSolution:
+    """:func:`solve_qp` over the leading batch axis of every argument (the
+    JAX package's name for its ``vmap``; :func:`solve_qp` is batched
+    already)."""
+    return solve_qp(H, g, A, l, u, iters=iters, **kw)
+
+
 @plain_version
 def solve_box_ls(F, b, lo, hi, iters: int = 40, reg: float = 1e-8):
     """Box-constrained least squares  min ||F x - b||^2  s.t. lo <= x <= hi

@@ -10,7 +10,10 @@
   PyTorch in the params' dtype, the reference's semantics.
 
 The kernel engines run one- or two-phase (``SimParams.two_phase``); on CPU
-tensors their plain PyTorch versions run instead of the kernels.
+tensors their plain PyTorch versions run instead of the kernels.  They can
+also return each game's activity (meta row 3: the loop iterations in
+which the game had a live event), which :func:`rollout_pallas_sorted`
+sorts the batch by.
 """
 
 from __future__ import annotations
@@ -32,16 +35,27 @@ def _check_device(t: torch.Tensor, dev: torch.device, what: str):
                          f"run on {dev}")
 
 
+_KERNEL_ENGINES = ("pallas_exact", "pallas")
+
+
 def step_batch(states: GameState, controls: torch.Tensor,
-               params: SimParams, device="cuda") -> GameState:
+               params: SimParams, device="cuda", with_activity=False):
     """One batched control step: states are batch-leading, controls
     (B, 4, 2).  Runs on ``device`` (cuda unless the caller asks for the
     CPU); the states and controls must lie there.  Decided games (a score
     at winning_score) keep their state.  Stochastic steps draw each game's
-    noise from its own key and advance it."""
+    noise from its own key and advance it.
+
+    With ``with_activity`` (kernel engines only) returns ``(new_states,
+    activity)``: activity (B,) float32 on the step's device counts the
+    loop iterations in which each game had a live event (meta row 3 of
+    K1 and K6, one- and two-phase alike)."""
     dev = resolve_device(device)
     _check_device(states.x, dev, "states")
     _check_device(controls, dev, "controls")
+    if with_activity and params.engine not in _KERNEL_ENGINES:
+        raise ValueError(f"with_activity needs a kernel engine "
+                         f"{_KERNEL_ENGINES}, not {params.engine!r}")
     if params.engine == "event":
         return step_event(states, controls, params)[0]
     if params.engine == "sweep":
@@ -69,7 +83,47 @@ def step_batch(states: GameState, controls: torch.Tensor,
             out = ps._twophase_planes(planes, u, params, npl)
         else:
             out = ps._kernel_call(planes, u, params, npl, mode="full")
-    return ex._from_planes(out, states, new_keys, params)
+    new = ex._from_planes(out, states, new_keys, params)
+    return (new, out[1][3]) if with_activity else new
+
+
+def rollout_pallas_sorted(states: GameState, u_seq: torch.Tensor,
+                          params: SimParams, resort_every: int = 1,
+                          device="cuda") -> GameState:
+    """A multi-step rollout on a kernel engine with the batch kept ordered
+    by a decayed per-game activity (``act = 0.5 act + activity``), so
+    that games with long event loops share blocks of the kernel's launch
+    and quiet blocks free their slots early.  Every ``resort_every``-th
+    step (a remainder of the steps runs unsorted) the states (the keys
+    included: a game's noise stream travels with it), their order and
+    their activity are gathered by ``argsort(-act)``.  Sorting only
+    permutes the games, so the result, returned in the original order,
+    equals the step-by-step rollout's.  ``u_seq`` is (n_steps, B, 4, 2)
+    on the step's device."""
+    if params.engine not in _KERNEL_ENGINES:
+        raise ValueError(f"rollout_pallas_sorted runs a kernel engine "
+                         f"{_KERNEL_ENGINES}, not {params.engine!r}")
+    if resort_every < 1:
+        raise ValueError(f"resort_every must be >= 1, got {resort_every}")
+    dev = resolve_device(device)
+    _check_device(states.x, dev, "states")
+    _check_device(u_seq, dev, "controls")
+    B = states.score.shape[0]
+    n = u_seq.shape[0]
+    last = n // resort_every * resort_every
+    s = states
+    idx = torch.arange(B, device=dev)
+    act = torch.zeros(B, dtype=torch.float32, device=dev)
+    for k in range(n):
+        s, a = step_batch(s, u_seq[k][idx], params, device=dev,
+                          with_activity=True)
+        act = 0.5 * act + a
+        if k < last and (k + 1) % resort_every == 0:
+            order = torch.argsort(-act, stable=True)
+            s = GameState(*(f[order] for f in s))
+            idx, act = idx[order], act[order]
+    back = torch.argsort(idx)
+    return GameState(*(f[back] for f in s))
 
 
 def step_event(states: GameState, controls: torch.Tensor,

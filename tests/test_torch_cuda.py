@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K6 and the draw kernel against their plain
-PyTorch versions, on the card; the puck player on K2 against the CPU, and
-a one-process NCCL mesh against the mesh-less sweep.
+PyTorch versions, on the card; the puck player on K2 against the CPU, a
+one-process NCCL mesh against the mesh-less sweep, and the
+activity-sorted rollout on K1 and K6 against the step-by-step one.
 
 These tests need a CUDA device (marker ``cuda``); without one they skip.
 Run them on the card with
@@ -833,3 +834,32 @@ def test_one_process_nccl_mesh_equals_meshless(dev):
             assert torch.equal(x, y)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("engine", ["pallas_exact", "pallas"])
+def test_sorted_rollout_equals_step_by_step(dev, engine):
+    """rollout_pallas_sorted on K1 / K6 only permutes the games among the
+    kernel's blocks: at B=256 on corner grinders its states equal the
+    step-by-step rollout's bitwise, keys included, at resort_every 1 and
+    4; the kernel's occupancy query gives at least one block an SM."""
+    from robogame_tpu_torch import kernels
+    from robogame_tpu_torch.tools.dist_equiv import make_sched, make_states
+    p = rt.SimParams(engine=engine, two_phase=False)
+    B, n = 256, 30
+    us = torch.from_numpy(make_sched("corner", B, n, seed=3)).to(dev)
+    s0 = make_states(B, p, dev)
+    ref, act = s0, torch.zeros(B, device=dev)
+    for u in us:
+        ref, a = rt.step_batch(ref, u, p, device=dev, with_activity=True)
+        act += a
+    assert bool((act != act[0]).any())      # a spread to sort by
+    for every in (1, 4):
+        got = rt.rollout_pallas_sorted(s0, us, p, resort_every=every,
+                                       device=dev)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    name = "exact_step" if engine == "pallas_exact" else "parallel_step"
+    for stochastic in (False, True):
+        occ = kernels.step_occupancy(name, p.grid_points + 1, stochastic)
+        assert occ["blocks_per_sm"] >= 1 and occ["smem_bytes"] > 0
+

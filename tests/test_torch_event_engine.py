@@ -32,6 +32,10 @@ from robogame_tpu_torch.physics.sweep import _substep_affine_np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
 
+# JAX's initial states (tools/dist_equiv.py), one jitted program: one
+# compile instead of one per eager op
+_j_make_states = jax.jit(make_states, static_argnums=(0, 1, 2))
+
 torch.set_num_threads(1)
 
 
@@ -91,7 +95,7 @@ def test_event_step_matches_jax_corner_grinders():
     """Corner pile-ups (tools/dist_equiv.py make_sched("corner")), ground
     20 steps by JAX, then held per step over steps 20-29, which drive the
     loop to its cap."""
-    sj = make_states(B, None, JP)
+    sj = _j_make_states(B, None, JP)
     us = make_sched("corner", B, 30, seed=3).astype(np.float64)
     for u in us[:20]:
         sj = _j_step_batch(sj, jnp.asarray(u))

@@ -6,7 +6,10 @@ Tolerances are those of tests/test_pallas_exact.py.  The two sides differ
 only in f32 roundoff: the populate sums the 6 non-zeros of M where JAX
 takes a 32-term dot.  Random play keeps chains short, so states agree to
 1e-4; corner grinding drives the event loop to its cap and amplifies
-roundoff within a step (x 5e-3, damage 2e-3).  Scores are exact."""
+roundoff within a step (x 5e-3, damage 2e-3).  Scores are exact, and so
+is each game's activity (``with_activity``: the loop iterations with a
+live event).  The activity-sorted rollout equals the step-by-step one
+bitwise: it only permutes the games, which step independently."""
 
 import os
 import sys
@@ -36,6 +39,10 @@ def _inference_mode():
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
 
+# JAX's initial states (tools/dist_equiv.py), one jitted program: one
+# compile instead of one per eager op
+_j_make_states = jax.jit(make_states, static_argnums=(0, 1, 2))
+
 # JAX's one-phase step: the same states as its two-phase one (JAX's tests
 # hold the two equal bitwise), without the second kernel call
 JP = JParams(dtype="float32", engine="pallas_exact", two_phase=False)
@@ -49,10 +56,12 @@ def _port(s):
 
 
 def _step_both(s, u):
-    """One step of each side from the JAX state ``s``."""
-    sj = step_pallas_batch(s, jnp.asarray(u), JP)
-    st = rt.step_batch(_port(s), torch.as_tensor(np.asarray(u)), TP,
-                       device="cpu")
+    """One step of each side from the JAX state ``s``; the activities
+    must be equal (the file's one JAX compile is ``with_activity``)."""
+    sj, aj = step_pallas_batch(s, jnp.asarray(u), JP, with_activity=True)
+    st, at = rt.step_batch(_port(s), torch.as_tensor(np.asarray(u)), TP,
+                           device="cpu", with_activity=True)
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
     return sj, st
 
 
@@ -91,9 +100,10 @@ def test_corner_grinding_per_step_matches_jax():
     taken by both sides from the same JAX state."""
     B = 16
     us = make_sched("corner", B, 40, seed=3)
-    s = make_states(B, None, JParams(dtype="float32", engine="event"))
+    s = _j_make_states(B, None, JParams(dtype="float32", engine="event"))
     for k in range(28):
-        s = step_pallas_batch(s, jnp.asarray(us[k]), JP)
+        s = step_pallas_batch(s, jnp.asarray(us[k]), JP,
+                              with_activity=True)[0]
     dmg0 = float(np.asarray(s.damage).sum())
     for k in range(28, 38):
         sj, st = _step_both(s, us[k])
@@ -124,3 +134,39 @@ def test_stochastic_noise0_bitwise_equals_deterministic():
         torch.testing.assert_close(sd.x, ss.x, rtol=0, atol=0)
         torch.testing.assert_close(sd.damage, ss.damage, rtol=0, atol=0)
         torch.testing.assert_close(sd.score, ss.score, rtol=0, atol=0)
+
+
+def _sort_inputs(params, B=12, n=8):
+    """tests/test_pallas.py:221-239's shape: B=12 random pucks, faster
+    here, two of them fired at players, 8 steps of U(-8, 8) controls."""
+    rng = np.random.default_rng(3)
+    x0s = rng.uniform(-1, 1, (B, 4)) * np.array([4.5, 2.2, 10.0, 10.0])
+    x0s[:2] = [[2.0, 1.25, 6.0, 0.0], [-2.0, -1.25, -6.0, 0.0]]
+    s = rt.initial_state(params,
+                         x0_puck=torch.tensor(x0s, dtype=torch.float32),
+                         seed=list(range(1, B + 1)), device="cpu")
+    us = torch.from_numpy(rng.uniform(-8, 8, (n, B, 4, 2)).astype(np.float32))
+    us[:, :2] = 0.0
+    return s, us
+
+
+@pytest.mark.parametrize("two_phase, stochastic, every", [
+    (False, False, 1), (True, False, 2), (True, True, 1)])
+def test_sorted_rollout_equals_step_by_step(two_phase, stochastic, every):
+    """rollout_pallas_sorted on K1's plain version equals the one-phase
+    step-by-step rollout bitwise (keys included), one- and two-phase, at
+    resort_every 1 and 2, deterministic and stochastic; the games'
+    activities differ, so the sort permutes them."""
+    p1 = TP.replace(two_phase=False, stochastic=stochastic,
+                    noise=1.0 if stochastic else 0.0)
+    s, us = _sort_inputs(p1)
+    ref, act = s, torch.zeros(s.score.shape[0])
+    for u in us:
+        ref, a = rt.step_batch(ref, u, p1, device="cpu", with_activity=True)
+        act += a
+    assert act.max() > 0 and (act == 0).any()
+    got = rt.rollout_pallas_sorted(s, us, p1.replace(two_phase=two_phase),
+                                   resort_every=every, device="cpu")
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+

@@ -37,6 +37,10 @@ def _inference_mode():
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
 
+# JAX's initial states (tools/dist_equiv.py), one jitted program: one
+# compile instead of one per eager op
+_j_make_states = jax.jit(make_states, static_argnums=(0, 1, 2))
+
 B = 16
 
 
@@ -100,7 +104,7 @@ def test_export_then_resume_match_jax():
     grid and carry gives JAX's resume result."""
     jp = JParams(dtype="float32", engine="pallas_exact")
     tp = rt.SimParams(dtype="float32", engine="pallas_exact")
-    js = make_states(B, None, JParams(dtype="float32", engine="event"))
+    js = _j_make_states(B, None, JParams(dtype="float32", engine="event"))
     us = make_sched("corner", B, 30, seed=3)
     s = tex.GameState(*(torch.from_numpy(np.array(a)) for a in
                         (js.x, js.score, js.damage, js.t)),

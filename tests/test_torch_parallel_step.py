@@ -9,10 +9,13 @@ with damage equal; against JAX's ``step_sweep`` 2.4e-7 on random play.  The
 populate and the tails sum the six non-zeros of M where JAX takes 32-term
 dots, so the two differ in f32 roundoff only; held here to JAX's own
 tolerances (tests/test_pallas.py:44-48): x 1e-4, damage 1e-5, scores
-exact.  K6 is not bitwise equal to the sweep engine: it re-detects every
-entity each iteration where the sweep engine keeps the slots of untouched
-entities, and it re-propagates through z = Finvpow[base] (x_base - Spow
-u) where the sweep engine applies Fpow[k - base] to x_base."""
+exact, and each game's activity (``with_activity``: the loop iterations
+with a live event) exact.  The activity-sorted rollout equals the
+step-by-step one bitwise.  K6 is not bitwise equal to the sweep engine:
+it re-detects every entity each iteration where the sweep engine keeps
+the slots of untouched entities, and it re-propagates through z =
+Finvpow[base] (x_base - Spow u) where the sweep engine applies
+Fpow[k - base] to x_base."""
 
 import functools
 import json
@@ -95,9 +98,12 @@ def test_plain_k6_matches_jax_interpret_mode():
     for _ in range(18):
         u = rng.uniform(-8, 8, (16, 4, 2)).astype(np.float32)
         u[8:] = -8.0
-        sj = step_pallas_batch(s, jnp.asarray(u), JP)
-        st = rt.step_batch(_port(s), torch.from_numpy(u), TP, device="cpu")
+        sj, aj = step_pallas_batch(s, jnp.asarray(u), JP,
+                                   with_activity=True)
+        st, at = rt.step_batch(_port(s), torch.from_numpy(u), TP,
+                               device="cpu", with_activity=True)
         _held(sj, st)
+        np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
         s = sj
     assert int(np.asarray(s.score).sum()) > 0          # goals were scored
     assert float(np.asarray(s.damage)[8:].sum()) > 1.0  # the pile-ups met
@@ -159,7 +165,8 @@ def _corner_pinned(B):
 @pytest.mark.parametrize("path", ["compact", "overflow"])
 def test_twophase_bitwise_equals_one_phase(monkeypatch, path):
     """Two-phase (export at phase1_iters=1, gather the pending games into
-    K lanes, resume, scatter) equals the one-phase step bitwise.  B=256:
+    K lanes, resume, scatter) equals the one-phase step bitwise, its
+    activity (meta row 3) included.  B=256:
     the compacted path at compact_frac=4 (K=64 >= pending), the overflow
     path at compact_frac=2 (K=128 < pending: full-batch resume)."""
     B = 256
@@ -188,9 +195,9 @@ def test_twophase_bitwise_equals_one_phase(monkeypatch, path):
     monkeypatch.setattr(ps, "_kernel_call", spy)
     s1 = s2 = s
     for u in us:
-        s1 = rt.step_batch(s1, u, TP, device="cpu")
-        s2 = rt.step_batch(s2, u, p2, device="cpu")
-        for a, b in zip(s1, s2):
+        s1, a1 = rt.step_batch(s1, u, TP, device="cpu", with_activity=True)
+        s2, a2 = rt.step_batch(s2, u, p2, device="cpu", with_activity=True)
+        for a, b in zip((*s1, a1), (*s2, a2)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
     K = ex._compact_lanes(B, p2)
     if path == "compact":
@@ -252,11 +259,9 @@ def test_odd_batch_noise0_and_activity():
                          seed=list(range(4)), device="cpu")
     act = torch.zeros(4)
     for _ in range(6):
-        planes = ex._to_planes(s)
-        out = ps._kernel_call(planes, ex._u_plane(torch.zeros((4, 4, 2)), 4),
-                              TP)
-        act += out[1][3]
-        s = ex._from_planes(out, s, s.key, TP)
+        s, a = rt.step_batch(s, torch.zeros((4, 4, 2)), TP, device="cpu",
+                             with_activity=True)
+        act += a
     assert act[0] > 0 and act[1:].sum() == 0
 
 
@@ -274,17 +279,61 @@ def test_monte_carlo_pallas_matches_sweep():
 
 def test_dispatch_and_device():
     """Engine 'event' runs on CPU tensors; the default device is the
-    card, so without one the step raises rather than running on the CPU;
-    on CPU tensors engine 'pallas' runs the plain version (no K6
-    launch)."""
+    card, so without one the step and the sorted rollout raise rather than
+    running on the CPU; on CPU tensors engine 'pallas' runs the plain
+    version (no K6 launch); the engines without a kernel have no activity
+    and no sorted rollout."""
     from robogame_tpu_torch import kernels
     s = rt.initial_state(TP, seed=[1, 2], device="cpu")
     u = torch.zeros((2, 4, 2))
     ev = rt.step_batch(s, u, TP.replace(engine="event"), device="cpu")
     assert ev.x.device.type == "cpu" and bool(torch.isfinite(ev.x).all())
+    for engine in ("event", "sweep"):
+        pe = TP.replace(engine=engine)
+        with pytest.raises(ValueError, match="kernel engine"):
+            rt.step_batch(s, u, pe, device="cpu", with_activity=True)
+        with pytest.raises(ValueError, match="kernel engine"):
+            rt.rollout_pallas_sorted(s, u[None], pe, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             rt.step_batch(s, u, TP)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rt.rollout_pallas_sorted(s, u[None], TP)
     kernels.reset_launches()
     rt.step_batch(s, u, TP.replace(two_phase=True), device="cpu")
     assert sum(kernels.parallel_launches.values()) == 0
+
+
+def _sort_inputs(params, B=12, n=8):
+    """tests/test_pallas.py:221-239's shape: B=12 random pucks, faster
+    here, two of them fired at players, 8 steps of U(-8, 8) controls."""
+    rng = np.random.default_rng(3)
+    x0s = rng.uniform(-1, 1, (B, 4)) * np.array([4.5, 2.2, 10.0, 10.0])
+    x0s[:2] = [[2.0, 1.25, 6.0, 0.0], [-2.0, -1.25, -6.0, 0.0]]
+    s = rt.initial_state(params,
+                         x0_puck=torch.tensor(x0s, dtype=torch.float32),
+                         seed=list(range(1, B + 1)), device="cpu")
+    us = torch.from_numpy(rng.uniform(-8, 8, (n, B, 4, 2)).astype(np.float32))
+    us[:, :2] = 0.0
+    return s, us
+
+
+@pytest.mark.parametrize("two_phase, stochastic, every", [
+    (False, False, 2), (True, False, 1), (False, True, 2)])
+def test_sorted_rollout_equals_step_by_step(two_phase, stochastic, every):
+    """rollout_pallas_sorted on K6's plain version equals the one-phase
+    step-by-step rollout bitwise (keys included), one- and two-phase, at
+    resort_every 1 and 2, deterministic and stochastic; the games'
+    activities differ, so the sort permutes them."""
+    p1 = TP.replace(stochastic=stochastic, noise=1.0 if stochastic else 0.0)
+    s, us = _sort_inputs(p1)
+    ref, act = s, torch.zeros(s.score.shape[0])
+    for u in us:
+        ref, a = rt.step_batch(ref, u, p1, device="cpu", with_activity=True)
+        act += a
+    assert act.max() > 0 and (act == 0).any()
+    got = rt.rollout_pallas_sorted(s, us, p1.replace(two_phase=two_phase),
+                                   resort_every=every, device="cpu")
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+

@@ -10,7 +10,10 @@ package's, on the same inputs made with numpy.
   ADMM in f32, with sums taken in another order, and equality rows at
   1e3 rho make K ill-conditioned enough to amplify that roundoff.
 * At the classical skills' shape (n=30, m=60) and DMPC's (40, 140, row
-  scaling) against JAX's vmapped ``solve_qp``.
+  scaling) against JAX's ``solve_qp_batch`` (its vmapped ``solve_qp``);
+  the port's ``solve_qp_batch`` against it within tests/test_ops.py's
+  atol 1e-4.
+* The ``ops`` and ``physics`` packages export JAX's names.
 * Shared operands: a grouped call equals the broadcast call bitwise.
 * K2's grouped algebra (``solve_qp_grouped_plain``: one f64 factorization
   per shared operand, then the factor-free ADMM in f32) at the skills'
@@ -26,7 +29,7 @@ import pytest
 import torch
 
 from robogame_tpu.models import lqsys as jlq
-from robogame_tpu.ops.qp import solve_qp as j_solve_qp
+from robogame_tpu.ops.qp import solve_qp_batch as j_solve_qp_batch
 from robogame_tpu.ops.qp_pallas import solve_qp_lanes as j_solve_qp_lanes
 
 import robogame_tpu_torch as rt
@@ -64,9 +67,10 @@ def make_qps(B, n, m, seed=0, n_eq=0, cond=10.0):
 
 @functools.lru_cache(maxsize=None)
 def _jax_solver(kw):
-    """JAX's solve_qp vmapped over problems, one jitted program per set of
-    keyword arguments (one compile instead of one per eager op)."""
-    return jax.jit(jax.vmap(lambda *a: j_solve_qp(*a, **dict(kw))))
+    """JAX's solve_qp_batch (solve_qp vmapped over problems), one jitted
+    program per set of keyword arguments (one compile instead of one per
+    eager op)."""
+    return jax.jit(lambda *a: j_solve_qp_batch(*a, **dict(kw)))
 
 
 def _jax_vmapped(qp, **kw):
@@ -198,6 +202,35 @@ def test_dmpc_shape_with_row_scaling_matches_jax_solve_qp():
     got = _port(qp, iters=60, scale_rows=True)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x),
                                atol=5e-3, rtol=5e-2)
+
+
+def test_solve_qp_batch_matches_jax():
+    """The port's solve_qp_batch against JAX's on the 8 random DMPC-shaped
+    QPs above (the same JAX program), within tests/test_ops.py:37-40's
+    atol 1e-4: the same ADMM in f32 (measured 1.1e-6); flags equal."""
+    qp = make_qps(8, 40, 140, seed=3)
+    ref = _jax_vmapped(qp, iters=60, scale_rows=True)
+    got = rt.ops.solve_qp_batch(*(torch.from_numpy(a) for a in qp),
+                                iters=60, scale_rows=True)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(ref.converged))
+
+
+def test_exports_match_jax():
+    """``ops`` exports JAX's names; ``physics`` exports JAX's, with
+    ``step_batch`` for ``step_pallas_batch``, and the sorted rollout."""
+    import robogame_tpu.ops as j_ops
+    import robogame_tpu.physics as j_physics
+    import robogame_tpu_torch.ops as t_ops
+    import robogame_tpu_torch.physics as t_physics
+    assert set(t_ops.__all__) == set(j_ops.__all__)
+    want = (set(j_physics.__all__) - {"step_pallas_batch"}) | {
+        "step_batch", "rollout_pallas_sorted"}
+    assert want <= set(t_physics.__all__)
+    for mod in (t_ops, t_physics):
+        assert all(callable(getattr(mod, name)) for name in mod.__all__)
 
 
 @pytest.mark.parametrize("scale_rows", [False, True])

@@ -1,5 +1,6 @@
 """Two-phase compact-and-resume in the port equals the one-phase step
-bitwise (the plain PyTorch version of K1), on each of its three paths:
+bitwise (the plain PyTorch version of K1), each game's activity (meta
+row 3) included, on each of its three paths:
 the resume budget covers the whole batch, the pending games overflow the
 budget (full-batch resume), and the pending games are compacted into the
 budget (gather / resume / scatter).  The compaction budget is
@@ -42,8 +43,9 @@ def _states(B):
 
 @pytest.fixture(scope="module")
 def one_phase():
-    """The pre-ground states, the one-phase step's states 6 steps on, and
-    the schedules, per (family, pre) for B_MAX games.  A smaller case takes
+    """The pre-ground states, the one-phase step's states 6 steps on with
+    each step's activity, and the schedules, per (family, pre) for B_MAX
+    games.  A smaller case takes
     the first B games: the same seeds and schedules (make_sched draws the
     games in order), and games step independently, so the two corner cases
     share one one-phase run."""
@@ -55,13 +57,15 @@ def one_phase():
             s = _states(B_MAX)
             for k in range(pre):
                 s = rt.step_batch(s, us[k], P1, device="cpu")
-            s1 = s
+            s1, acts = s, []
             for k in range(pre, pre + 6):
-                s1 = rt.step_batch(s1, us[k], P1, device="cpu")
-            runs[family, pre] = (s, s1, us)
-        s, s1, us = runs[family, pre]
+                s1, a = rt.step_batch(s1, us[k], P1, device="cpu",
+                                      with_activity=True)
+                acts.append(a)
+            runs[family, pre] = (s, s1, torch.stack(acts), us)
+        s, s1, acts, us = runs[family, pre]
         first = lambda st: type(st)(*(a[:B] for a in st))
-        return first(s), first(s1), us[:, :B]
+        return first(s), first(s1), acts[:, :B], us[:, :B]
 
     return get
 
@@ -74,7 +78,7 @@ def one_phase():
 def test_twophase_bitwise_equals_one_phase(monkeypatch, one_phase, B, frac,
                                            family, pre, path):
     p2 = P1.replace(two_phase=True, phase1_iters=1, compact_frac=frac)
-    s, s1, us = one_phase(family, pre, B)
+    s, s1, acts1, us = one_phase(family, pre, B)
 
     resumes, pending = [], []
     call = tex._kernel_call
@@ -88,10 +92,12 @@ def test_twophase_bitwise_equals_one_phase(monkeypatch, one_phase, B, frac,
         return out
 
     monkeypatch.setattr(tex, "_kernel_call", spy)
-    s2 = s
+    s2, acts2 = s, []
     for k in range(pre, pre + 6):
-        s2 = rt.step_batch(s2, us[k], p2, device="cpu")
-    for a, b in zip(s1, s2):
+        s2, a = rt.step_batch(s2, us[k], p2, device="cpu",
+                              with_activity=True)
+        acts2.append(a)
+    for a, b in zip((*s1, acts1), (*s2, torch.stack(acts2))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     K = tex._compact_lanes(B, p2)
     if path == "cover":
