@@ -41,18 +41,9 @@ from robogame_tpu_torch.tools import dist_equiv as de
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import dist_equiv as jde  # noqa: E402
-
-torch.set_num_threads(1)
+from _port_env import port_module  # noqa: E402,F401  (autouse fixture)
 
 B, STEPS = 8, 40
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 
 @pytest.mark.parametrize("cap", [2, 9])

@@ -35,16 +35,7 @@ from robogame_tpu_torch.agents import centralized as tct
 from robogame_tpu_torch.control import cmpc as tcm
 from robogame_tpu_torch.control.dmpc import runner_up_gap
 from robogame_tpu_torch.ops import qp_lanes, sqp_lanes
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 JP = JParams(dtype="float32")
 TP = rt.SimParams(dtype="float32")

@@ -22,16 +22,7 @@ import robogame_tpu_torch as rt
 import robogame_tpu_torch.config as tcfg
 from robogame_tpu_torch.parallel import make_mesh
 from robogame_tpu_torch.physics import dynamics as tdyn
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

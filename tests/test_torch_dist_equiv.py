@@ -20,7 +20,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from robogame_tpu_torch.config import SimParams
 from robogame_tpu_torch.tools import dist_equiv as de
@@ -28,18 +27,9 @@ from robogame_tpu_torch.tools import dist_equiv as de
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 import dist_equiv as jde  # noqa: E402
-
-torch.set_num_threads(1)
+from _port_env import port_module  # noqa: E402,F401  (autouse fixture)
 
 G, STEPS = 192, 50
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 
 def _finals(rng, n, cls):

@@ -33,16 +33,7 @@ from robogame_tpu.ops.sqp_pallas import solve_dmpc_sqp_lanes as j_sqp
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.control import dmpc as tdm
 from robogame_tpu_torch.ops import sqp_lanes
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 JP = JParams(dtype="float32")
 TP = rt.SimParams(dtype="float32")

@@ -34,16 +34,7 @@ from robogame_tpu.control import dmpc as jdm
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.agents import dmpc_team as tteam
 from robogame_tpu_torch.control import dmpc as tdm
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 tmc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
 

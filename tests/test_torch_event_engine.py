@@ -17,7 +17,6 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from robogame_tpu.config import SimParams as JParams
@@ -31,20 +30,11 @@ from robogame_tpu_torch.physics.sweep import _substep_affine_np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402
+from _port_env import port_module  # noqa: E402,F401  (autouse fixture)
 
 # JAX's initial states (tools/dist_equiv.py), one jitted program: one
 # compile instead of one per eager op
 _j_make_states = jax.jit(make_states, static_argnums=(0, 1, 2))
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 B = 8
 TOL = 1e-9

@@ -46,8 +46,7 @@ from robogame_tpu_torch.examples import (bench_mpc, bench_sweep,
                                          mc_example_1, mc_scaling,
                                          run_collisions)
 from robogame_tpu_torch.utils.gamelog import read_log
-
-torch.set_num_threads(1)
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVERS = ["examples.run_collisions", "examples.run_sim",
@@ -58,14 +57,6 @@ DRIVERS = ["examples.run_collisions", "examples.run_sim",
            "examples.mc_scaling", "examples.train_es", "tools.dist_equiv",
            "tools.bench_grind", "tools.bench_sol", "tools.reconcile_bias",
            "graft_entry"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 
 def _main(name, argv):

@@ -14,7 +14,6 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from robogame_tpu.config import SimParams as JParams
@@ -23,16 +22,7 @@ from robogame_tpu.state import initial_state as j_initial_state
 
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.physics import exact_step as tex
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched, make_states  # noqa: E402

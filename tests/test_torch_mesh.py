@@ -25,19 +25,10 @@ import torch.distributed as dist
 import robogame_tpu_torch as rt
 from robogame_tpu_torch import distributed_mc
 from robogame_tpu_torch.parallel import make_mesh
-
-torch.set_num_threads(1)
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 # the parallel package exports a function of the module's name
 tmc = importlib.import_module("robogame_tpu_torch.parallel.monte_carlo")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 
 @pytest.fixture(scope="module")

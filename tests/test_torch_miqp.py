@@ -23,17 +23,7 @@ from robogame_tpu_torch.control import miqp
 from robogame_tpu_torch.control.obstacles import (
     intercepting_with_obs_avoidance_bb)
 from robogame_tpu_torch.models.lqsys import exact_ab
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
-
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 P = rt.SimParams(dtype="float64", dt=0.3)
 P0, V0 = np.array([-1.5, 0.0]), np.zeros(2)

@@ -11,23 +11,13 @@ import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from jax import lax
 
 from robogame_tpu.config import SimParams as JParams
 
 import robogame_tpu_torch as rt
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 # the parallel packages export a function of the module's name
 jmc = importlib.import_module("robogame_tpu.parallel.monte_carlo")

@@ -16,17 +16,7 @@ import robogame_tpu_torch as rt
 from robogame_tpu_torch.physics import noise
 from robogame_tpu_torch.physics import engine as tengine
 from robogame_tpu_torch.physics.sweep import game_draws
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
-
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 M32 = 0xFFFFFFFF
 

@@ -38,16 +38,7 @@ from robogame_tpu_torch.parallel.monte_carlo import _initial_states
 from robogame_tpu_torch.physics import exact_step as ex
 from robogame_tpu_torch.physics import parallel_step as ps
 from robogame_tpu_torch.physics.sweep import _substep_affine_np
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from dist_equiv import make_sched  # noqa: E402

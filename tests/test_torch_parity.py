@@ -21,16 +21,7 @@ from test_parity import FULL_RUN_TOL
 
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.utils.gamelog import damage_log_fields, read_log
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 SCENARIOS = [s[:-5] for s in sorted(os.listdir(GOLDEN))

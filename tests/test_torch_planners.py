@@ -32,17 +32,7 @@ from robogame_tpu_torch.control import obstacles as tobs
 from robogame_tpu_torch.control import trajopt as ttraj
 from robogame_tpu_torch.models.lqsys import condense, exact_ab
 from robogame_tpu_torch.ops import qp as tqp
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
-
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 JP, TP = JParams(dtype="float64"), SimParams(dtype="float64")
 F64 = torch.float64

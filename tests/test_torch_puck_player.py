@@ -23,17 +23,7 @@ from robogame_tpu.control import puck_player_mpc as jpp
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.control import dmpc as tdm
 from robogame_tpu_torch.control import puck_player_mpc as tpp
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
-
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 X_ATOL, X_RTOL = 2e-3, 1e-2
 # tests/test_utils.py's controller

@@ -37,16 +37,7 @@ from robogame_tpu_torch.control import trajopt as tt
 from robogame_tpu_torch.models import lqsys as tlq
 from robogame_tpu_torch.ops import qp, qp_lanes
 from robogame_tpu_torch.ops.qp_lanes import solve_qp_lanes
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 
 def make_qps(B, n, m, seed=0, n_eq=0, cond=10.0):

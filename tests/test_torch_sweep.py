@@ -25,16 +25,7 @@ from robogame_tpu.state import initial_state as j_initial_state
 import robogame_tpu_torch as rt
 from robogame_tpu_torch.physics.engine import _detect
 from robogame_tpu_torch.physics.sweep import _affine_tables
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 B, HALF = 16, 8
 # scoring runs and bouncy runs (tests/test_pallas.py:29-48), then corner

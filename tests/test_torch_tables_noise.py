@@ -16,16 +16,7 @@ from robogame_tpu_torch.config import SimParams
 from robogame_tpu_torch.physics import exact_step as tex
 from robogame_tpu_torch.physics.noise import REPROPAGATION, game_normals
 from robogame_tpu_torch.physics import sweep as tsw
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 CONFIGS = [dict(), dict(dt=0.02, grid_points=20, tau_player=0.3,
                         tau_puck=1.0)]

@@ -34,20 +34,11 @@ from robogame_tpu.config import SimParams as JParams
 
 from robogame_tpu_torch.config import SimParams
 from robogame_tpu_torch.examples import train_es as es
-
-torch.set_num_threads(1)
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POP, STEPS = 8, 5
 P = es.n_params()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
 
 
 @pytest.fixture(scope="module")

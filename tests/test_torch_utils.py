@@ -34,17 +34,7 @@ from robogame_tpu_torch.utils import (PhaseTimer, checkpointed_scan,
                                       counters_line, load_checkpoint,
                                       save_checkpoint, trace)
 from robogame_tpu_torch.utils.gamelog import GameLogWriter, rows_from_states
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _inference_mode():
-    """Nothing here is differentiated: the module's torch work runs in
-    inference mode, without autograd's per-operation bookkeeping."""
-    with torch.inference_mode():
-        yield
-
+from _port_env import port_module  # noqa: F401  (autouse fixture)
 
 PARAMS = rt.SimParams(dtype="float64", engine="sweep")
 X0_PUCK = [0.0, 0.3, 2.0, 1.0]
